@@ -1,20 +1,20 @@
 """PatchMatch building blocks used by the rectified engine.
 
 Port of the rect-path pieces of :mod:`dpe_mvs_tpu.engine.patchmatch`: the
-probe tables, multi-hypothesis view selection, the view-selection prior, the
-refinement combos, depth extraction and filtering, and the disparity sweeps
-of DepthToWeak and LocalRefine (their rect branch). The exact (XLA-gather)
-engine is a later slice.
+per-sweep :class:`Support` maps, the probe tables, multi-hypothesis view
+selection, the view-selection prior, the refinement combos, depth extraction
+and filtering, and the disparity sweeps of DepthToWeak and LocalRefine
+(their rect branch). The exact (XLA-gather) engine is a later slice.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from dpe_mvs_tpu.config import COST_MAX, PatchMatchParams, PixelState
-
+from ..config import COST_MAX, PatchMatchParams, PixelState
 from ..geometry import cameras as geo
 from ..ops import ncc, sampling, support
 from ..ops import planes as planegen
@@ -24,6 +24,27 @@ WEAK = int(PixelState.WEAK)
 STRONG = int(PixelState.STRONG)
 UNKNOWN = int(PixelState.UNKNOWN)
 BIG = float(1e30)
+
+
+class Support(NamedTuple):
+    """Per-sweep precomputed support maps (GenEdgeInform + friends)."""
+
+    edge_steps: Optional[torch.Tensor]      # (8, H, W) f32 steps to edge
+    complexity: Optional[torch.Tensor]      # (H, W) f32
+    label_runs: Optional[torch.Tensor]      # (8, H, W) f32 same-label runs
+    los: Optional[support.LineOfSight]
+    nearest_strong: Optional[torch.Tensor]  # (H, W, 2) i32 (x, y) or -1
+    neighbours: Optional[torch.Tensor]      # (8, H, W, 2) i32 anchors / -1
+    radius: Optional[torch.Tensor]          # (H, W) f32 adaptive NCC radius
+    fit_plane: Optional[torch.Tensor]       # (H, W, 4)
+
+
+EMPTY_SUPPORT = Support(*([None] * len(Support._fields)))
+
+# Reference direction vectors of edge-bounded sampling (DPE.cu:1243), the
+# same table as ops.support.DIR8.
+_EDGE_DIRS = [(0, -1), (0, 1), (-1, 0), (1, 0), (-1, -1), (1, 1), (-1, 1),
+              (1, -1)]
 
 
 def strong_offsets(params: PatchMatchParams) -> np.ndarray:

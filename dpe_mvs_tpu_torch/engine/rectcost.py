@@ -1,8 +1,7 @@
 """The rectified cost engine: every NCC sample as a row-local gather.
 
-Port of :mod:`dpe_mvs_tpu.engine.rectcost` (pass-A pieces). Every cost
-evaluation runs in the pairwise-rectified frames of
-:mod:`dpe_mvs_tpu.geometry.rectify`, where a window sample of the source
+Port of :mod:`dpe_mvs_tpu.engine.rectcost`. Every cost evaluation runs in
+the pairwise-rectified frames of :mod:`..geometry.rectify`, where a window sample of the source
 image lies on the same row as its reference sample for any plane hypothesis
 and its column is affine in the rectified pixel. One evaluation of a plane
 field against the source views is:
@@ -15,10 +14,13 @@ field against the source views is:
   3. transport the cost field rect -> original with a nearest two-pass warp.
 
 Costs keep the reference semantics: in [0, 2], COST_MAX for invalid centers.
+In geometric-consistency passes (pass B) the forward-backward reprojection
+error against the source views' depth maps, rectified into each view's rect
+frame (:func:`rectify_src_depths`), is added with weight ``geom_factor``
+(``ComputeGeomConsistencyCost``, DPE.cu:915-953).
 
-Not ported here (later slices): the geometric-consistency term (pass B),
-the stacked runtime-flag warps and the row banding, which were TPU
-workarounds (remote compile cache, 16 GB of HBM) and give the same results.
+Not ported (TPU workarounds that give the same results): the stacked
+runtime-flag warps, the row banding and the optimization barriers.
 """
 from __future__ import annotations
 
@@ -28,10 +30,9 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from dpe_mvs_tpu.config import COST_MAX, PatchMatchParams
-from dpe_mvs_tpu.geometry import rectify
-
+from ..config import COST_MAX, GEOM_COST_MAX, PatchMatchParams
 from ..geometry import cameras as geo
+from ..geometry import rectify
 from ..ops import rowgather
 from ..ops import warp as warp_ops
 from ..ops.ncc import K_MIN_VAR
@@ -39,10 +40,8 @@ from ..ops.sampling import shift as _shift3
 
 BIG = float(1e30)
 S_CHUNK = 8        # probes per row-gather launch (bounds transient memory)
-VOL_INVALID = 1e4  # marker for invalid volume entries
-
-_GEOM = ("geometric consistency (pass B) is not ported yet: it arrives with "
-         "slice 2")
+VOL_INVALID = 1e4  # marker for invalid volume entries (bf16-exact)
+VALID_THRESH = 1e3
 
 
 @dataclasses.dataclass
@@ -53,6 +52,8 @@ class RectView:
     src_rect: torch.Tensor     # (Hp, Wp) f32 rectified source image
     ref_ok: torch.Tensor       # (Hp, Wp) f32 1 where rect px has ref content
     src_ok: torch.Tensor       # (Hp, Wp) f32 1 where rect px has src content
+    src_depth_rect: torch.Tensor  # (Hp, Wp) f32 src depth in its rect frame
+                                  # (zeros unless a geom pass)
     R2r: torch.Tensor          # (3, 3) ref-cam -> rect rotation
     f: torch.Tensor            # () rect focal
     cx: torch.Tensor           # () rect principal point
@@ -183,13 +184,12 @@ def warp_bwd_channels_strided(rv: RectView, statics: RectStatics, i: int,
 
 
 def build_rect_views(rh: RectHost, images: np.ndarray, device,
-                     src_depths: Optional[np.ndarray] = None
+                     src_depths=None, cameras: Optional[Sequence] = None
                      ) -> Tuple[RectView, ...]:
     """Warp the images into the rect frames and assemble the RectView tuple.
-    ``images`` (1 + n_src, H, W) float32 host images."""
-    if src_depths is not None:
-        raise NotImplementedError(_GEOM)
-
+    ``images`` (1 + n_src, H, W) float32 host images; ``src_depths``
+    (n_src, H, W) source depth maps of a geom pass, with ``cameras``
+    [ref, src...] (see :func:`rectify_src_depths`)."""
     def t(a, dtype=torch.float32):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
@@ -210,6 +210,7 @@ def build_rect_views(rh: RectHost, images: np.ndarray, device,
             src_rect=src_r,
             ref_ok=t(wf.valid.astype(np.float32)),
             src_ok=t(sf.valid.astype(np.float32)),
+            src_depth_rect=torch.zeros_like(ref_r),
             R2r=t(pair.R2r.astype(np.float32)),
             f=t(np.float32(pair.f)),
             cx=t(np.float32(pair.cx)),
@@ -222,7 +223,42 @@ def build_rect_views(rh: RectHost, images: np.ndarray, device,
             orig_ok=t(wb.valid.astype(np.float32)),
             H_ref=t(pair.H_ref.astype(np.float32)),
         ))
-    return tuple(views)
+    views = tuple(views)
+    if src_depths is not None:
+        views = rectify_src_depths(views, rh, src_depths, cameras)
+    return views
+
+
+def rectify_src_depths(views: Tuple[RectView, ...], rh: RectHost,
+                       src_depths, cameras: Sequence
+                       ) -> Tuple[RectView, ...]:
+    """Warp the source views' depth maps into each view's rect frame (geom
+    passes). ``src_depths`` (n_src, H, W) host array or tensor, in each
+    source's pixel grid along its z-axis; the rect frame needs z along the
+    rect z-axis, ``z_rect = depth * (r3 . p~_src)`` with a static factor
+    field per pair (:func:`..geometry.rectify.src_depth_factor`). Nearest
+    warp, zero outside the source's content."""
+    dev = views[0].ref_rect.device
+    deps = torch.as_tensor(np.asarray(src_depths) if not isinstance(
+        src_depths, torch.Tensor) else src_depths, dtype=torch.float32,
+        device=dev)
+    n_src = deps.shape[0]
+    H, W = deps.shape[1:]
+    out = []
+    for i, rv in enumerate(views):
+        src_i = min(i, n_src - 1)
+        sf = rh.sfwd[i]
+        factor = torch.as_tensor(rectify.src_depth_factor(
+            rh.pairs[i], cameras[1 + src_i].K, W, H), device=dev)
+        dep_r = warp_ops.warp_separable(
+            deps[src_i] * factor, torch.as_tensor(sf.vpass_y, device=dev),
+            torch.as_tensor(sf.hpass_x, device=dev),
+            transposed_input=sf.transposed_input, nearest=True)
+        ok = torch.as_tensor(sf.valid, device=dev)
+        out.append(dataclasses.replace(
+            rv, src_depth_rect=torch.where(ok, dep_r,
+                                           torch.zeros_like(dep_r))))
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------
@@ -251,6 +287,7 @@ class RectStack:
     src_rect: torch.Tensor       # (V, Hp, Wp)
     ref_ok: torch.Tensor         # (V, Hp, Wp)
     src_ok: torch.Tensor         # (V, Hp, Wp)
+    src_depth: torch.Tensor      # (V, Hp, Wp)
     orig_ok: torch.Tensor        # (V, H, W)
     R2r: torch.Tensor            # (V, 3, 3)
     f: torch.Tensor              # (V, 1, 1)
@@ -300,6 +337,7 @@ def build_rect_stack(views: Tuple[RectView, ...],
         src_rect=torch.stack([rv.src_rect for rv in views]),
         ref_ok=torch.stack([rv.ref_ok for rv in views]),
         src_ok=src_ok,
+        src_depth=torch.stack([rv.src_depth_rect for rv in views]),
         orig_ok=torch.stack([rv.orig_ok for rv in views]),
         R2r=torch.stack([rv.R2r for rv in views]),
         f=scal(lambda rv: rv.f), cx=scal(lambda rv: rv.cx),
@@ -377,6 +415,7 @@ class EvalCache:
     inv_w: torch.Tensor           # (V, Hs, Ws)
     m_ref: torch.Tensor
     var_ref: torch.Tensor
+    src_depth: Optional[torch.Tensor]    # (V, Hs, Wp) row-subsampled (geom)
 
 
 def _row_offsets(offsets: np.ndarray):
@@ -397,8 +436,6 @@ def build_eval_cache(stack: RectStack, params: PatchMatchParams,
                      budget_bytes: float = 2.2e9) -> Optional[EvalCache]:
     """Build the per-stage EvalCache, or None when the cached fields would
     exceed ``budget_bytes`` (evaluations then recompute inline)."""
-    if geom:
-        raise NotImplementedError(_GEOM)
     V, Hp, Wp = stack.src_rect.shape
     Hs, Ws = -(-Hp // stride), -(-Wp // stride)
     rows = _row_offsets(offsets)
@@ -443,6 +480,7 @@ def build_eval_cache(stack: RectStack, params: PatchMatchParams,
         src_lo=subr(stack.src_lo), src_hi=subr(stack.src_hi),
         src_rows=tuple(src_rows), w=tuple(ws), wr=tuple(wrs),
         inv_w=inv_w, m_ref=m_ref, var_ref=var_ref,
+        src_depth=subr(stack.src_depth).contiguous() if geom else None,
     )
 
 
@@ -469,9 +507,8 @@ def rect_cost_vector_stacked(
     ``stride > 1`` evaluates only the rect frame's stride-subgrid of window
     CENTERS (window samples keep full-resolution texture) and
     nearest-upsamples through the backward warp — the candidate-screening
-    approximation (strong_rect.screen_stride)."""
-    if geom:
-        raise NotImplementedError(_GEOM)
+    approximation (strong_rect.screen_stride). ``geom`` adds the
+    forward-backward reprojection error times ``params.geom_factor``."""
     V, Hp, Wp = stack.src_rect.shape
     H, W = plane.shape[:2]
     dev = plane.device
@@ -592,10 +629,28 @@ def rect_cost_vector_stacked(
     c = torch.where((var_ref < K_MIN_VAR) | (var_src < K_MIN_VAR), cmax, nccv)
     c = torch.where(valid, c, cmax)
 
+    if geom:
+        if cache is not None and cache.src_depth is not None:
+            dep = cache.src_depth
+        else:
+            dep = subr(stack.src_depth).contiguous()
+        z_src = rowgather.row_gather(
+            dep.reshape(V * Hs, Wp),
+            xs_c.clamp(0.0, Wp - 1).to(torch.int32).reshape(V * Hs, Ws)
+            .contiguous()).reshape(V, Hs, Ws)
+        ok_g = (xs_c >= 0.0) & (xs_c <= Wp - 1.0)
+        x_back = xs_c + stack.f * stack.b / torch.where(
+            z_src > 0, z_src, torch.full_like(z_src, 1e30))
+        err = torch.clamp(torch.abs(x_back - u), max=GEOM_COST_MAX)
+        g = torch.where(ok_g & (z_src > 0), err,
+                        torch.full_like(err, GEOM_COST_MAX))
+        c = c + params.geom_factor * g
+
     back = _warp_groups(stack.bwd, c[:, None], nearest=True,
                         stride=stride)[:, 0]                 # (V, H, W)
     ok = (stack.orig_ok > 0.5) & view_valid[:, None, None]
-    return torch.where(ok, back, torch.full_like(back, COST_MAX))
+    cmax_o = COST_MAX + (params.geom_factor * GEOM_COST_MAX if geom else 0.0)
+    return torch.where(ok, back, torch.full_like(back, cmax_o))
 
 
 def plane_to_rect(plane: torch.Tensor, R2r: torch.Tensor) -> torch.Tensor:
@@ -620,9 +675,9 @@ def _sweep_ncc_volume(rv: RectView, coeff_fn, S: int, offsets: np.ndarray,
     affine disparity coefficient fields of probes [c0, c1), computed per
     chunk. ``stride > 1`` evaluates the volume only on the rect frame's
     stride-subgrid of window centers (window samples keep full-resolution
-    texture). Returns (vol VOL_INVALID-marked, None, valid)."""
-    if with_geom:
-        raise NotImplementedError(_GEOM)
+    texture). Returns (vol VOL_INVALID-marked, gvol VOL_INVALID-marked or
+    None, valid); gvol is the forward-backward reprojection error
+    (``ComputeGeomConsistencyCost``, DPE.cu:915-953)."""
     Hp, Wp = rv.ref_rect.shape
     dev = rv.ref_rect.device
     Hs, Ws = Hp // stride, Wp // stride
@@ -669,9 +724,10 @@ def _sweep_ncc_volume(rv: RectView, coeff_fn, S: int, offsets: np.ndarray,
     sc = -(-S // n_chunks)
     ref_ok_s = sub(rv.ref_ok)[:, None] > 0.5
     src_ok_rows = rv.src_ok[::stride].contiguous()
+    dep_rows = rv.src_depth_rect[::stride].contiguous() if with_geom else None
     vq = v.reshape(Hs, 1, 1)
     uq = u.reshape(1, 1, Ws)
-    vols, valids = [], []
+    vols, gvols, valids = [], [], []
     for c0 in range(0, S, sc):
         gxs, gys, g0s = coeff_fn(c0, min(S, c0 + sc))        # (n, Hs, Ws)
         n = gxs.shape[0]
@@ -715,10 +771,9 @@ def _sweep_ncc_volume(rv: RectView, coeff_fn, S: int, offsets: np.ndarray,
         d_c = gxs_t * (uq - rv.cx) + gys_t * (vq - rv.cy) + g0s_t
         d_c = torch.where(torch.isfinite(d_c), d_c, torch.full_like(d_c, BIG))
         xs_c = uq + d_c
-        src_ok_c = rowgather.row_gather(
-            src_ok_rows,
-            xs_c.reshape(Hs, n * Ws).clamp(0.0, Wp - 1).to(torch.int32)
-            .contiguous()).reshape(Hs, n, Ws)
+        xs_i = xs_c.reshape(Hs, n * Ws).clamp(0.0, Wp - 1).to(torch.int32) \
+            .contiguous()
+        src_ok_c = rowgather.row_gather(src_ok_rows, xs_i).reshape(Hs, n, Ws)
         # Cheirality: with the source at +x, a point in front of the cameras
         # has disparity -f*b/z < 0.
         valid = ref_ok_s & (src_ok_c > 0.5) & (xs_c >= 0.0) & \
@@ -727,4 +782,15 @@ def _sweep_ncc_volume(rv: RectView, coeff_fn, S: int, offsets: np.ndarray,
                                 torch.full_like(cost_c, VOL_INVALID))
                     .transpose(0, 1))
         valids.append(valid.transpose(0, 1))
-    return torch.cat(vols), None, torch.cat(valids)
+        if with_geom:
+            z_src = rowgather.row_gather(dep_rows, xs_i).reshape(Hs, n, Ws)
+            x_back = xs_c + rv.f * rv.b / torch.where(
+                z_src > 0, z_src, torch.full_like(z_src, 1e30))
+            err = torch.clamp(torch.abs(x_back - uq), max=GEOM_COST_MAX)
+            err = torch.where((z_src > 0) & valid, err,
+                              torch.full_like(err, GEOM_COST_MAX))
+            gvols.append(torch.where(valid, err,
+                                     torch.full_like(err, VOL_INVALID))
+                         .transpose(0, 1))
+    gvol = torch.cat(gvols) if with_geom else None
+    return torch.cat(vols), gvol, torch.cat(valids)

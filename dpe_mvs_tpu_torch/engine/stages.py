@@ -1,43 +1,44 @@
-"""Staged sweep executor on the rectified engine (pass A).
+"""Staged sweep executor on the rectified engine.
 
-Port of :mod:`dpe_mvs_tpu.engine.stages` for round-0 pass A
-(``RunState.FIRST_INIT``, no APD, no edges, no geometric consistency):
+Port of :mod:`dpe_mvs_tpu.engine.stages`. One sweep runs
 
-    init -> strong-iter x max_iterations -> finish -> classify -> refine
+    [support] -> init -> [weakprep] -> (strong [-> weak]) x max_iterations
+    -> finish -> classify -> refine
 
-with the JAX package's key schedule: ``keys = state.key.split(32)``;
-``keys[1]`` is the iteration base, ``fold_in(it)`` per iteration and
-``fold_in(color)`` per checkerboard color; ``keys[-1]`` becomes the next
-sweep's key. The stages run eagerly on the tensors' device.
+with support and weakprep when the weak-texture machinery is on
+(``use_APD``; support also for ``use_edge``), and the JAX package's key
+schedule call for call: ``keys = state.key.split(32)``; ``keys[0]`` goes to
+support (the anchor search); ``keys[1]`` is the iteration base,
+``fold_in(it)`` per iteration, then ``fold_in(color)`` per strong color,
+``fold_in(2)`` for the fit-plane RANSAC and ``fold_in(3 + color)`` per weak
+color; ``keys[-1]`` becomes the next sweep's key. The stages run eagerly on
+the tensors' device.
 """
 from __future__ import annotations
 
 import torch
 
-from dpe_mvs_tpu.config import PatchMatchParams, PixelState, RunState
-
+from ..config import PatchMatchParams, PixelState
+from ..ops import weak as weak_ops
 from . import patchmatch as pm
-from . import strong_rect
+from . import strong_rect, sweep, weak_rect
 from .state import PMState, SweepData
 
 WEAK = int(PixelState.WEAK)
 
 
-def check_pass_a(params: PatchMatchParams, rstat) -> None:
-    """Raise for the branches this slice does not port yet (``rstat`` None
-    means the exact engine)."""
+def check_engine(rstat) -> None:
+    """The port runs the rectified engine; ``rstat`` None (the exact engine)
+    raises."""
     if rstat is None:
         raise NotImplementedError(
             "the exact (non-rectified) engine is not ported yet: it arrives "
             "with slice 5")
-    later = [name for name, on in (
-        ("use_APD", params.use_APD), ("use_edge", params.use_edge),
-        ("geom_consistency", params.geom_consistency),
-        (params.state.name, params.state != RunState.FIRST_INIT)) if on]
-    if later:
-        raise NotImplementedError(
-            f"{', '.join(later)}: only round-0 pass A is ported; pass B and "
-            f"later rounds arrive with slice 2")
+
+
+def _support_stage(data: SweepData, state: PMState, key,
+                   params: PatchMatchParams):
+    return sweep.build_support(data, state, params, key)
 
 
 def _init_stage(data: SweepData, state: PMState, params: PatchMatchParams,
@@ -45,8 +46,15 @@ def _init_stage(data: SweepData, state: PMState, params: PatchMatchParams,
     return strong_rect.initialize_rect(data, state, params, rstat)
 
 
+def _weakprep_stage(data: SweepData, sup, state: PMState,
+                    params: PatchMatchParams, rstat):
+    """Per-sweep probe volumes + anchor profiles; runs once after init."""
+    return weak_rect.build_weak_bundle(data, sup, state, params, rstat)
+
+
 def _strong_iter(data: SweepData, state: PMState, it, key_it,
-                 params: PatchMatchParams, rstat) -> PMState:
+                 params: PatchMatchParams, rstat, sup=pm.EMPTY_SUPPORT
+                 ) -> PMState:
     """One propagation iteration over strong pixels, both checkerboard
     colors. The current plane's cost vector is shared by both colors (the
     cost at a pixel depends only on that pixel's plane, and color 0 writes
@@ -58,10 +66,23 @@ def _strong_iter(data: SweepData, state: PMState, it, key_it,
     cnv = cost_fn(state.plane)
     for color in (0, 1):
         out = strong_rect.propagate_strong_rect(
-            key_it.fold_in(color), data, None, state, params, it, color,
+            key_it.fold_in(color), data, sup, state, params, it, color,
             rstat, cost_now_vec=cnv, cost_fn=cost_fn, cost_fn_s=cost_fn_s)
         state = strong_rect.apply_strong_full(state, state.weak != WEAK,
                                               color, *out)
+    return state
+
+
+def _weak_iter(data: SweepData, sup, state: PMState, it, key_it,
+               params: PatchMatchParams, rstat, bundle) -> PMState:
+    """Fit-plane RANSAC + weak propagation for both colors."""
+    sup_it = sup._replace(**weak_ops.fit_plane_ransac(
+        key_it.fold_in(2), data, sup, state, params))
+    for color in (0, 1):
+        out = weak_rect.propagate_weak_rect(
+            key_it.fold_in(3 + color), data, sup_it, state, params, it,
+            color, rstat, bundle)
+        state = sweep.apply_compacted(state, state.weak == WEAK, color, *out)
     return state
 
 
@@ -100,11 +121,11 @@ def _refine_stage(data: SweepData, state: PMState, params: PatchMatchParams,
 def run_sweep_staged(data: SweepData, state: PMState,
                      params: PatchMatchParams, *, rstat,
                      timer=None) -> PMState:
-    """One full pass-A PatchMatch sweep on the rectified engine.
+    """One full PatchMatch sweep on the rectified engine.
 
     ``timer``: optional callable ``timer(name)`` returning a context manager
     around each stage (it is responsible for any device synchronisation)."""
-    check_pass_a(params, rstat)
+    check_engine(rstat)
     keys = state.key.split(32)
 
     def run(name, fn, *args):
@@ -113,11 +134,23 @@ def run_sweep_staged(data: SweepData, state: PMState,
         with timer(name):
             return fn(*args)
 
+    sup = pm.EMPTY_SUPPORT
+    if params.use_APD or params.use_edge:
+        sup, state = run("support", _support_stage, data, state, keys[0],
+                         params)
     state = run("init", _init_stage, data, state, params, rstat)
+    bundle = None
+    if params.use_APD:
+        bundle = run("weakprep", _weakprep_stage, data, sup, state, params,
+                     rstat)
     base_key = keys[1]
     for it in range(params.max_iterations):
-        state = run("strong", _strong_iter, data, state, it,
-                    base_key.fold_in(it), params, rstat)
+        key_it = base_key.fold_in(it)
+        state = run("strong", _strong_iter, data, state, it, key_it, params,
+                    rstat, sup)
+        if params.use_APD:
+            state = run("weak", _weak_iter, data, sup, state, it, key_it,
+                        params, rstat, bundle)
     state = run("finish", _finish_stage, data, state, params)
     state = run("classify", _classify_stage, data, state, params, rstat)
     state = run("refine", _refine_stage, data, state, params, rstat)

@@ -11,10 +11,13 @@ has no shifts or reductions on CUDA); at most 31 source views fit, as
 ``config.MAX_IMAGES = 32`` allows. It is written back with the same bits as
 the JAX package's uint32.
 
-``sweep_data_from_numpy`` / ``pm_state_from_numpy`` /
-``rect_views_from_numpy`` take the JAX package's ``SweepData`` / ``PMState``
-/ ``RectView`` with numpy leaves (``jax.tree.map(np.asarray, x)``) so both
-packages can compute from identical state.
+The ``*_from_numpy`` functions take the JAX package's ``SweepData`` /
+``PMState`` / ``RectView`` / ``Support`` / ``WeakRectBundle`` with numpy
+leaves (``jax.tree.map(np.asarray, x)``) so both packages can compute from
+identical state.
+
+Entry points put their tensors on the card unless the caller asks for
+another device (``device="cpu"``).
 """
 from __future__ import annotations
 
@@ -24,15 +27,14 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from dpe_mvs_tpu.config import PixelState
-
+from ..config import PixelState
 from ..geometry import cameras as geo
 
 
 @dataclasses.dataclass
 class CameraData:
-    """Host-side camera of one view, field-compatible with
-    ``dpe_mvs_tpu.io.scene.CameraData``."""
+    """Host-side camera of one view (the fields of the JAX package's
+    ``io.scene.CameraData``)."""
 
     K: np.ndarray  # (3, 3) float32
     R: np.ndarray  # (3, 3) float32
@@ -45,8 +47,9 @@ class CameraData:
 
 @dataclasses.dataclass
 class ProblemInputs:
-    """Host-side inputs of one problem (pass A needs no priors), field-
-    compatible with ``dpe_mvs_tpu.io.scene.ProblemInputs``."""
+    """Host-side inputs of one problem (the fields of the JAX package's
+    ``io.scene.ProblemInputs``): images and cameras, and for later passes
+    the priors, the weak map and the source depth maps (1 + S, H, W)."""
 
     images: np.ndarray               # (1+S, H, W) float32
     cameras: List[CameraData]        # len 1+S
@@ -128,12 +131,15 @@ def _t(a, device, dtype=None):
     return torch.as_tensor(np.array(a), device=device, dtype=dtype)
 
 
-def build_sweep_data(inputs, v_pad: int, device,
+def build_sweep_data(inputs, v_pad: int,
                      edge: Optional[np.ndarray] = None,
                      edge_low: Optional[np.ndarray] = None,
-                     label: Optional[np.ndarray] = None) -> SweepData:
+                     label: Optional[np.ndarray] = None,
+                     device="cuda") -> SweepData:
     """Assemble device inputs from host-side problem inputs (all prep math
-    in numpy, as the JAX package does)."""
+    in numpy, as the JAX package does). ``edge`` (H, W), ``edge_low`` (the
+    coarse edge map) and ``label`` (H, W) are the support maps; zero maps
+    when absent."""
     n_src = inputs.images.shape[0] - 1
     H, W = inputs.height, inputs.width
     ref_c = inputs.cameras[0]
@@ -196,8 +202,11 @@ def build_sweep_data(inputs, v_pad: int, device,
     )
 
 
-def init_pm_state(inputs, v_pad: int, key, use_APD: bool, device) -> PMState:
-    """Initial per-pixel state from priors (DPE.cpp:846-912)."""
+def init_pm_state(inputs, v_pad: int, key, use_APD: bool,
+                  device="cuda") -> PMState:
+    """Initial per-pixel state from priors (DPE.cpp:846-912). ``plane``
+    holds (world normal, depth) when priors exist; the init stage re-frames
+    it into camera coordinates."""
     H, W = inputs.height, inputs.width
     plane = np.zeros((H, W, 4), np.float32)
     if inputs.prior_depth is not None:
@@ -259,3 +268,49 @@ def rect_views_from_numpy(views, device) -> tuple:
     names = [f.name for f in dataclasses.fields(RectView)]
     return tuple(RectView(**{n: _t(getattr(rv, n), device, torch.float32)
                              for n in names}) for rv in views)
+
+
+def support_from_numpy(sup, device):
+    """The JAX package's Support (numpy leaves; absent maps None) as the
+    port's."""
+    from ..ops import support as sup_ops
+    from .patchmatch import Support
+
+    def t(a):
+        return None if a is None else _t(a, device)
+
+    los = None
+    if sup.los is not None:
+        los = sup_ops.LineOfSight(
+            free_dist=_t(sup.los.free_dist, device),
+            scale_x=float(sup.los.scale_x), scale_y=float(sup.los.scale_y),
+            max_len=float(np.asarray(sup.los.max_len)))
+    return Support(edge_steps=t(sup.edge_steps), complexity=t(sup.complexity),
+                   label_runs=t(sup.label_runs), los=los,
+                   nearest_strong=t(sup.nearest_strong),
+                   neighbours=t(sup.neighbours), radius=t(sup.radius),
+                   fit_plane=t(sup.fit_plane))
+
+
+def _bf16(a, device):
+    """A numpy bfloat16 array (ml_dtypes) as a torch bfloat16 tensor."""
+    if a is None:
+        return None
+    bits = np.asarray(a).view(np.uint16).astype(np.int16)
+    return torch.as_tensor(bits, device=device).view(torch.bfloat16)
+
+
+def weak_bundle_from_numpy(b, device):
+    """The JAX package's WeakRectBundle (numpy leaves) as the port's: the
+    bf16 volumes bit for bit, the packed streaming volumes as their 32-bit
+    words."""
+    from .weak_rect import WeakRectBundle
+    return WeakRectBundle(
+        vol_center=_bf16(b.vol_center, device),
+        vol_geom=_bf16(b.vol_geom, device),
+        d0=_t(b.d0, device),
+        ap=_bf16(b.ap, device),
+        a_d0=None if b.a_d0 is None else _t(b.a_d0, device),
+        w_chans=(None if b.w_chans is None else
+                 _t(np.asarray(b.w_chans).view(np.int32), device)),
+    )

@@ -1,32 +1,29 @@
 """Strong-pixel PatchMatch propagation on the rectified cost engine.
 
-Port of :mod:`dpe_mvs_tpu.engine.strong_rect` (classic candidate mode).
-Every NCC evaluation goes through :mod:`.rectcost` as a full-resolution cost
-field; one color's update evaluates all pixels and the caller masks to the
-color's checkerboard sites. Candidate planes are carried through the probe
-argmin as statically shifted plane fields.
-
-Not ported yet: the edge-bounded candidates (``use_edge``) and the
-REFINE_INIT hysteresis, which run only after round 0.
+Port of :mod:`dpe_mvs_tpu.engine.strong_rect`. Every NCC evaluation goes
+through :mod:`.rectcost` as a full-resolution cost field (with the
+geometric term in geom passes); one color's update evaluates all pixels and
+the caller masks to the color's checkerboard sites. Candidate planes are
+carried through the probe argmin as shifted plane fields: static shifts in
+the classic ACMM mode (DPE.cu:1345-1545), and in the edge-bounded mode
+(``use_edge``, DPE.cu:1242-1343) one roll per entry of the offset table
+that the iteration's step magnitude selects.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from dpe_mvs_tpu.config import COST_MAX, PatchMatchParams, PixelState, RunState
-
+from ..config import COST_MAX, PatchMatchParams, PixelState, RunState
 from ..geometry import cameras as geo
 from ..ops import planes as planegen
-from ..ops import sampling
+from ..ops import sampling, support
 from . import patchmatch as pm
 from . import rectcost
 from .state import PMState, SweepData
 
 WEAK = int(PixelState.WEAK)
 BIG = float(1e30)
-
-_LATER = ("{} is not ported yet: it runs only after round 0 and arrives with "
-          "slice 2 (pass B)")
 
 
 def _select_k(stack: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -65,6 +62,110 @@ def classic_candidate_planes(cost_map: torch.Tensor, plane: torch.Tensor):
     return torch.stack(flags), torch.stack(cands)
 
 
+# Static step lengths the edge mode quantizes to (the reference computes
+# step_len = dist/step_num with min 2; the realized values at working
+# resolutions are small integers).
+_EDGE_STEP_SET = (2, 4, 6)
+
+
+def _s_mag(it) -> int:
+    return max(1, 5 - 2 * int(it))
+
+
+def _scan_offsets(stack5: torch.Tensor, plane: torch.Tensor, table, xg, yg):
+    """Carry the min-cost entry of ``stack5`` (5, H, W) = [cost, plane x4]
+    over the offset table ``[(dx, dy, extra_ok), ...]`` (``extra_ok`` an
+    (H, W) bool mask or None), as the JAX package's scan over rolled
+    stacks. Returns (best cost, best plane (H, W, 4))."""
+    H, W = stack5.shape[1:]
+    best_c = torch.full((H, W), BIG, device=stack5.device)
+    best_p = plane
+    big = torch.full((), BIG, device=stack5.device)
+    for pdx, pdy, extra in table:
+        rolled = torch.roll(stack5, (-pdy, -pdx), dims=(1, 2))
+        ok = (xg + pdx >= 0) & (xg + pdx < W) & (yg + pdy >= 0) & \
+            (yg + pdy < H)
+        if extra is not None:
+            ok = ok & extra
+        c = torch.where(ok, rolled[0], big)
+        better = c < best_c
+        best_c = torch.where(better, c, best_c)
+        best_p = torch.where(better[..., None], rolled[1:].permute(1, 2, 0),
+                             best_p)
+    return best_c, best_p
+
+
+def _diag_fix(d: int, dx_u: int, dy_u: int):
+    """The reference's extra unit step of the last diagonal directions."""
+    if d > 4:
+        return (dx_u, 0) if d % 2 == 1 else (0, dy_u)
+    return 0, 0
+
+
+def edge_candidate_planes(cost_map: torch.Tensor, plane: torch.Tensor,
+                          edge: torch.Tensor, edge_steps: torch.Tensor, it):
+    """Edge-bounded directional sampling (DPE.cu:1242-1292) with the
+    per-pixel step length quantized to ``_EDGE_STEP_SET``. The JAX package
+    scans a table of (bucket, step magnitude, step) offsets; only the rows
+    of this iteration's step magnitude can win, so only they are visited.
+    Carries winning planes like the classic mode.
+
+    Returns (flags (8, H, W) bool, cand_planes (8, H, W, 4))."""
+    H, W = cost_map.shape
+    max_edge_dist = max(H, W) / 30.0
+    min_step = 2
+    s_mag = _s_mag(it)
+    xg, yg = pm.int_grids(H, W, cost_map.device)
+    stack5 = torch.cat([cost_map[None], plane.permute(2, 0, 1)])
+
+    flags, cands = [], []
+    for d in range(8):
+        dx_u, dy_u = pm._EDGE_DIRS[d]
+        steps_t = edge_steps[d]
+        invalid = steps_t >= support.INF
+        cap = max_edge_dist / (np.sqrt(2.0) if d >= 4 else 1.0)
+        dist = torch.where(invalid | (steps_t > max_edge_dist),
+                           torch.full_like(steps_t, cap), steps_t)
+        dist = torch.where(edge, torch.full_like(dist, 11.0 * min_step), dist)
+        step_num = (dist / min_step).to(torch.int32).clamp(11, 22)
+        step_len_f = dist / step_num.to(torch.float32)
+        fx, fy = _diag_fix(d, dx_u, dy_u)
+        slq = torch.round(step_len_f).clamp(min_step, _EDGE_STEP_SET[-1]) \
+            .to(torch.int32)
+        table = []
+        for sl in _EDGE_STEP_SET:
+            in_bucket = (slq >= sl - 1) & (slq <= sl)
+            for t in range(22):
+                table.append((s_mag * dx_u + t * sl * dx_u + fx,
+                              s_mag * dy_u + t * sl * dy_u + fy,
+                              in_bucket & (t < step_num)))
+        best_c, best_p = _scan_offsets(stack5, plane, table, xg, yg)
+        flags.append(best_c < BIG)
+        cands.append(best_p)
+    return torch.stack(flags), torch.stack(cands)
+
+
+def second_pass_candidate_planes(cost_map: torch.Tensor, plane: torch.Tensor,
+                                 it):
+    """Short-range non-local pass (DPE.cu:1293-1343): 11 probes at step 2
+    per direction, at this iteration's step magnitude."""
+    H, W = cost_map.shape
+    s_mag = _s_mag(it)
+    xg, yg = pm.int_grids(H, W, cost_map.device)
+    stack5 = torch.cat([cost_map[None], plane.permute(2, 0, 1)])
+
+    flags, cands = [], []
+    for d in range(8):
+        dx_u, dy_u = pm._EDGE_DIRS[d]
+        fx, fy = _diag_fix(d, dx_u, dy_u)
+        table = [(s_mag * dx_u + t * 2 * dx_u + fx,
+                  s_mag * dy_u + t * 2 * dy_u + fy, None) for t in range(11)]
+        best_c, best_p = _scan_offsets(stack5, plane, table, xg, yg)
+        flags.append(best_c < BIG)
+        cands.append(best_p)
+    return torch.stack(flags), torch.stack(cands)
+
+
 def screen_stride(params: PatchMatchParams, rstat) -> int:
     """Stride of the candidate-SCREENING cost evaluations (strong
     propagation): candidates are scored on the rect frame's stride-subgrid
@@ -81,32 +182,49 @@ def make_cost_fn(data: SweepData, params: PatchMatchParams, rstat,
     """plane field (H, W, 4) -> (V, H, W) costs through the rectified engine.
     Builds the view-stacked operands once, and for strided screening the
     candidate-independent EvalCache, so every evaluation only pays the
-    source-side gathers and accumulation."""
-    if params.geom_consistency:
-        raise NotImplementedError(_LATER.format("geom_consistency"))
+    source-side gathers and accumulation. Costs include the geometric term
+    in geom passes."""
     offs = pm.strong_offsets(params)
+    geom = params.geom_consistency
     stack = rectcost.build_rect_stack(data.rect, rstat)
-    cache = (rectcost.build_eval_cache(stack, params, offs, stride=stride)
+    cache = (rectcost.build_eval_cache(stack, params, offs, stride=stride,
+                                       geom=geom)
              if stride > 1 else None)
 
     def cost_fn(plane):
         return rectcost.rect_cost_vector_stacked(
-            stack, plane, data.view_valid, params, offs, stride=stride,
-            cache=cache)
+            stack, plane, data.view_valid, params, offs, geom=geom,
+            stride=stride, cache=cache)
 
     return cost_fn
 
 
 def initialize_rect(data: SweepData, state: PMState,
                     params: PatchMatchParams, rstat) -> PMState:
-    """``RandomInitialization`` (DPE.cu:1035-1063) on the rect engine."""
-    if params.state != RunState.FIRST_INIT:
-        raise NotImplementedError(_LATER.format(
-            f"initialization for {params.state.name}"))
+    """``RandomInitialization`` (DPE.cu:1035-1063) on the rect engine:
+    random planes in the first round; later passes re-frame the prior
+    (world normal, depth) into camera planes and keep the selected views
+    whose cost is valid."""
     H, W = data.ref_image.shape
     px, py = geo.pixel_grid(H, W, data.device)
     cost_fn = make_cost_fn(data, params, rstat)
     key, sub = state.key.split(2)
+    zero = torch.zeros((), device=data.device)
+
+    if params.state != RunState.FIRST_INIT:
+        n_cam = geo.normal_world_to_cam(data.ref_cam, state.plane[..., :3])
+        plane = geo.plane_from_depth_normal(data.ref_cam, px, py,
+                                            state.plane[..., 3], n_cam)
+        costs = cost_fn(plane)
+        bit = pm.selected_bits(state.selected, costs.shape[0])
+        use = bit & (costs < COST_MAX)
+        cnt = use.sum(0)
+        cost = torch.where(cnt > 0, torch.where(use, costs, zero).sum(0)
+                           / cnt.clamp(min=1),
+                           torch.full((H, W), COST_MAX, device=data.device))
+        keep = ~(bit & (costs >= COST_MAX))
+        return state.replace(plane=plane, cost=cost,
+                             selected=pm.pack_bits(bit & keep), key=key)
 
     plane = planegen.random_plane(sub, data.ref_cam, px, py,
                                   data.depth_min, data.depth_max)
@@ -118,8 +236,7 @@ def initialize_rect(data: SweepData, state: PMState,
     ks = (top_k - 1).clamp(0, v - 1)
     kth = _select_k(sorted_c, ks)
     mask_steps = torch.arange(v, device=data.device)[:, None, None] < top_k[None]
-    mean_cost = torch.where(mask_steps, sorted_c,
-                            torch.zeros((), device=data.device)).sum(0) / \
+    mean_cost = torch.where(mask_steps, sorted_c, zero).sum(0) / \
         top_k.clamp(min=1)
     cost = torch.where(top_k > 0, mean_cost, torch.full_like(mean_cost,
                                                              COST_MAX))
@@ -183,13 +300,11 @@ def propagate_strong_rect(key, data: SweepData, sup, state: PMState,
     masks to the color's sites and non-weak pixels. ``cost_now_vec`` shares
     the current-plane evaluation across both colors; ``cost_fn`` /
     ``cost_fn_s`` share the exact and screening evaluators (and their
-    caches) across both colors."""
-    if params.use_edge:
-        raise NotImplementedError(_LATER.format("use_edge"))
-    if params.state != RunState.FIRST_INIT:
-        raise NotImplementedError(_LATER.format(params.state.name))
+    caches) across both colors. ``sup`` carries the edge steps of the
+    edge-bounded mode."""
     H, W = data.ref_image.shape
     nview = data.num_src
+    dev = data.device
     k_sel, k_ref = key.split(2)
     if cost_fn is None:
         cost_fn = make_cost_fn(data, params, rstat)
@@ -200,7 +315,11 @@ def propagate_strong_rect(key, data: SweepData, sup, state: PMState,
 
     plane_now = state.plane
     selected_now = state.selected
-    flags, cand_planes = classic_candidate_planes(state.cost, state.plane)
+    if params.use_edge:
+        flags, cand_planes = edge_candidate_planes(
+            state.cost, state.plane, data.edge, sup.edge_steps, it)
+    else:
+        flags, cand_planes = classic_candidate_planes(state.cost, state.plane)
 
     # Above 4 MP the screening volumes are stored bf16 (they only feed the
     # candidate argmin and view-selection counts; the winner is re-scored
@@ -208,7 +327,26 @@ def propagate_strong_rect(key, data: SweepData, sup, state: PMState,
     cdt = torch.bfloat16 if H * W > 4_000_000 else torch.float32
     cost_array = torch.stack([cost_fn_s(p).to(cdt) for p in cand_planes])
     cost_array = torch.where(flags[:, None], cost_array,
-                             torch.zeros((), dtype=cdt, device=data.device))
+                             torch.zeros((), dtype=cdt, device=dev))
+
+    if params.use_edge:
+        # The short-range second pass replaces a direction's candidate away
+        # from edges when it scores more good / fewer bad views.
+        good_thr = pm._threshold(it).to(dev)
+        f2, p2 = second_pass_candidate_planes(state.cost, state.plane, it)
+        c2 = torch.stack([cost_fn_s(p).to(cdt) for p in p2])
+        good1 = (cost_array < good_thr).sum(1)
+        bad1 = (cost_array > 1.2).sum(1)
+        c2m = torch.where(f2[:, None], c2,
+                          torch.full((), COST_MAX, dtype=cdt, device=dev))
+        good2 = (c2m < good_thr).sum(1)
+        bad2 = (c2m > 1.2).sum(1)
+        off_edge = (~data.edge)[None]
+        replace = f2 & off_edge & (
+            (~flags) | (good2 > good1) | ((good2 == good1) & (bad2 < bad1)))
+        cost_array = torch.where(replace[:, None], c2, cost_array)
+        cand_planes = torch.where(replace[..., None], p2, cand_planes)
+        flags = flags | (f2 & off_edge)
 
     prior = pm.neighbour_prior(state.selected, flags, nview)
     view_weight, temp_selected, weight_norm = pm.view_selection(
@@ -230,8 +368,9 @@ def propagate_strong_rect(key, data: SweepData, sup, state: PMState,
     cost_now = torch.sum(vw * cost_now_vec, dim=0) / wsum
     cost_now = torch.where(weight_norm > 0, cost_now,
                            torch.full_like(cost_now, COST_MAX))
+    stored_cost = cost_now
 
-    px, py = geo.pixel_grid(H, W, data.device)
+    px, py = geo.pixel_grid(H, W, dev)
     depth_now = geo.depth_from_plane(data.ref_cam, plane_now, px, py)
     depth_before = geo.depth_from_plane(data.ref_cam, min_plane, px, py)
     accept = min_flag & (depth_before >= data.depth_min) & \
@@ -245,6 +384,11 @@ def propagate_strong_rect(key, data: SweepData, sup, state: PMState,
     plane, depth, cost = refine_strong_rect(
         k_ref, data, params, cost_fn, plane, depth, cost, view_weight,
         weight_norm, cost_fn_s=cost_fn_s if stride > 1 else None)
+
+    if params.state == RunState.REFINE_INIT:
+        accept_final = cost < stored_cost - 0.1
+        plane = torch.where(accept_final[..., None], plane, plane_now)
+        cost = torch.where(accept_final, cost, stored_cost)
     return plane, cost, selected, view_weight
 
 

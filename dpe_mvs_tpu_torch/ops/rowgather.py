@@ -14,32 +14,23 @@ other. ``LAUNCHES`` counts kernel launches per kernel, so a run can show that
 it went through the kernels.
 
 The kernels are compiled with ``nvcc`` at first use, from the package's own
-source, into ``dpe_mvs_tpu_torch/_build/`` (a shared library with a plain C
-interface, loaded with ``ctypes``).
+source (:mod:`.cudalib`).
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 
 import torch
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "rowgather.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+from . import cudalib
+
+SOURCE = cudalib.CSRC / "rowgather.cu"
 
 # Kernel launches since the last reset_launches(), per kernel.
 LAUNCHES = {"row_gather": 0, "bilinear_x": 0}
 
-_lib = None
-_lib_lock = threading.Lock()
+_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+         ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p]
 
 
 def reset_launches() -> None:
@@ -47,50 +38,15 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _nvcc() -> str:
-    cand = shutil.which("nvcc")
-    if cand is None:
-        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-        cand = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(cand):
-        raise RuntimeError("nvcc not found: cannot build the row-gather "
-                           "kernels (set CUDA_HOME or put nvcc on PATH)")
-    return cand
-
-
-def build(verbose: bool = False) -> Path:
+def build(verbose: bool = False):
     """Compile ``csrc/rowgather.cu`` (if the cached build is stale) and return
     the shared library's path. Raises on a failed build."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"librowgather_{tag}.so"
-    if so.exists():
-        return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose:
-        print(res.stderr.strip())
-    os.replace(tmp, so)
-    return so
+    return cudalib.build_many([SOURCE], verbose)[0]
 
 
 def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for fn in (lib.dpe_row_gather, lib.dpe_bilinear_x):
-                fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                               ctypes.c_void_p, ctypes.c_int64,
-                               ctypes.c_int32, ctypes.c_int32,
-                               ctypes.c_void_p]
-                fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+    return cudalib.load(SOURCE, {"dpe_row_gather": _ARGS,
+                                 "dpe_bilinear_x": _ARGS})
 
 
 def _check(img: torch.Tensor, idx: torch.Tensor, idx_dtype, name: str):

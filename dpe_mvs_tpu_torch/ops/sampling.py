@@ -1,13 +1,22 @@
-"""Static window shifts of images and fields.
+"""Static window shifts and point gathers of images and fields.
 
 Port of the pieces of :mod:`dpe_mvs_tpu.ops.sampling` that the rectified
-engine reaches: :func:`shift`, the clamp-padded static shift used for
-reference-image window reads and cost-map neighbourhood scans. It works on
-the last two axes of a tensor of any rank.
+engine reaches:
+
+  - :func:`shift`, the clamp-padded static shift used for reference-image
+    window reads and cost-map neighbourhood scans (last two axes of a tensor
+    of any rank);
+  - :func:`gather_map`, the clamped 2-D point gather of the weak-texture
+    machinery, through the ``gather2d`` kernel;
+  - :func:`take_last` / :func:`pick_last`, picks along a small last axis
+    (``torch.gather``; the JAX package's one-hot chain there is a TPU
+    workaround).
 """
 from __future__ import annotations
 
 import torch
+
+from . import gather2d as g2d
 
 
 def _shift_axis(a: torch.Tensor, d: int, dim: int, fill=None) -> torch.Tensor:
@@ -36,3 +45,45 @@ def shift(img: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
     result[..., y, x] = img[..., clamp(y+dy), clamp(x+dx)]."""
     out = _shift_axis(img, int(dy), img.dim() - 2)
     return _shift_axis(out, int(dx), img.dim() - 1)
+
+
+def gather_map(arr: torch.Tensor, iy: torch.Tensor,
+               ix: torch.Tensor) -> torch.Tensor:
+    """arr[(iy, ix)] with clamp; arr (H, W, ...) and integer index tensors of
+    a common (broadcast) shape S -> (*S, ...).
+
+    Goes through :func:`.gather2d.gather2d`: the CUDA kernel on a CUDA
+    tensor, its plain version on the CPU. Narrow types (bool, uint8, int8)
+    ride the gather as int32 words, as the JAX package widens them."""
+    H, W = arr.shape[:2]
+    iy, ix = torch.broadcast_tensors(iy, ix)
+    S = tuple(iy.shape)
+    n = iy.numel()
+    q2 = (n // S[-1] if S[-1] else 0, S[-1]) if len(S) >= 2 else (1, n)
+    trail = tuple(arr.shape[2:])
+    C = 1
+    for t in trail:
+        C *= t
+    dt = arr.dtype
+    flat = arr.reshape(H, W, C).permute(2, 0, 1)             # (C, H, W)
+    if dt in (torch.bool, torch.uint8, torch.int8):
+        flat = flat.to(torch.int32)
+    out = g2d.gather2d(flat.contiguous(),
+                       iy.reshape(q2).to(torch.int32).contiguous(),
+                       ix.reshape(q2).to(torch.int32).contiguous())
+    out = out.permute(1, 2, 0).to(dt)                        # (*q2, C)
+    return out.reshape(*S, *trail)
+
+
+def take_last(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``take_along_axis(arr, idx, axis=-1)``: arr (..., P), idx (..., K)
+    integer -> (..., K)."""
+    shape = torch.broadcast_shapes(arr.shape[:-1], idx.shape[:-1])
+    return torch.gather(arr.expand(*shape, arr.shape[-1]), -1,
+                        idx.long().expand(*shape, idx.shape[-1]))
+
+
+def pick_last(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """One pick per element along the last axis: arr (..., P), idx (...)
+    integer -> (...)."""
+    return take_last(arr, idx[..., None])[..., 0]

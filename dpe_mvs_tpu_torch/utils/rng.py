@@ -8,13 +8,15 @@ function that draws takes a key object with the methods
     key.split(n)                -> list of n child keys
     key.fold_in(i)              -> child key for the integer i
     key.uniform(shape, lo, hi)  -> float32 tensor in [lo, hi)
+    key.randint(shape, lo, hi)  -> int32 tensor in [lo, hi)
 
-and each key is consumed by at most one ``uniform`` call, exactly where the
-JAX function consumes its key. :class:`TorchKey` is the implementation of the
-main path: a 64-bit seed; children derive their seeds from the parent's seed
-and the split or fold index through a fixed integer hash, and ``uniform`` draws
-from a ``torch.Generator`` on the target device seeded with the key's seed. A
-run is therefore reproducible from its root seed. The tests substitute an
+and each key is consumed by at most one ``uniform`` or ``randint`` call,
+exactly where the JAX function consumes its key. :class:`TorchKey` is the
+implementation of the main path: a 64-bit seed; children derive their seeds
+from the parent's seed and the split or fold index through a fixed integer
+hash, and ``uniform`` and ``randint`` draw from a ``torch.Generator`` on the
+target device seeded with the key's seed. A run is therefore reproducible
+from its root seed. The tests substitute an
 adapter that calls ``jax.random`` itself, so the port's stage functions draw
 the very numbers the JAX functions draw.
 """
@@ -55,12 +57,21 @@ class TorchKey:
     def fold_in(self, i) -> "TorchKey":
         return self._child(self._FOLD, int(i))
 
-    def uniform(self, shape, lo=0.0, hi=1.0) -> torch.Tensor:
+    def _generator(self) -> torch.Generator:
         g = torch.Generator(device=self.device)
         # manual_seed takes a signed 64-bit value range on some devices.
         g.manual_seed(self.seed & 0x7FFFFFFFFFFFFFFF)
+        return g
+
+    def uniform(self, shape, lo=0.0, hi=1.0) -> torch.Tensor:
+        g = self._generator()
         u = torch.rand(tuple(shape), generator=g, device=self.device,
                        dtype=torch.float32)
         lo = torch.as_tensor(lo, dtype=torch.float32, device=self.device)
         hi = torch.as_tensor(hi, dtype=torch.float32, device=self.device)
         return torch.maximum(lo, u * (hi - lo) + lo)
+
+    def randint(self, shape, lo: int, hi: int) -> torch.Tensor:
+        return torch.randint(int(lo), int(hi), tuple(shape),
+                             generator=self._generator(), device=self.device,
+                             dtype=torch.int32)

@@ -176,3 +176,34 @@ def make_plane_scene(*, width: int = 160, height: int = 120,
     return PlaneScene(images=images, cameras=cameras, gt_depths=gt_depths,
                       gt_normals=gt_normals, width=width, height=height,
                       weak_region=weak_region_v0)
+
+
+def support_maps(image: np.ndarray, edge_percentile: float = 85.0):
+    """In-memory stand-in for a problem's (edge, edge_low, label) support
+    maps, for driving the weak machinery and the edge-bounded sampling
+    without a dense folder.
+
+    The real maps come from the JAX package's ``edges/dual_level`` (Canny
+    edges and Hough-completed Roberts regions), which needs OpenCV; edge
+    extraction is ported with the pipeline. Here, with numpy and scipy:
+
+      - ``edge``: the Sobel gradient magnitude above its
+        ``edge_percentile``-th percentile;
+      - ``edge_low``: its 2x reduction (a low-res pixel is an edge where any
+        of its 2x2 block is), standing in for the coarse round's edge map;
+      - ``label``: the connected non-edge regions (``scipy.ndimage.label``)
+        with the reference's convention: 0 on edges, -1 for regions of at
+        most H*W/1024 pixels, a region id > 0 otherwise.
+    """
+    from scipy import ndimage
+    img = np.asarray(image, np.float32)
+    H, W = img.shape
+    mag = np.hypot(ndimage.sobel(img, axis=1), ndimage.sobel(img, axis=0))
+    edge = mag > np.percentile(mag, edge_percentile)
+    h2, w2 = max(H // 2, 1), max(W // 2, 1)
+    edge_low = edge[:2 * h2, :2 * w2].reshape(h2, 2, w2, 2).any(axis=(1, 3))
+    lab, _n = ndimage.label(~edge)
+    counts = np.bincount(lab.ravel())
+    small = counts[lab] <= int(H * W / 1024)
+    label = np.where(small & (lab != 0), -1, lab).astype(np.int32)
+    return edge, edge_low, label

@@ -136,10 +136,11 @@ def test_rect_cost_vector_stacked(scene, stride):
 
     statics = torch_parity.port_statics(rh.statics)
     tstack = trc.build_rect_stack(tdata.rect, statics)
-    tcache = (trc.build_eval_cache(tstack, params, offs, stride=stride)
+    tparams = torch_parity.port_params(params)
+    tcache = (trc.build_eval_cache(tstack, tparams, offs, stride=stride)
               if stride > 1 else None)
     out = trc.rect_cost_vector_stacked(
-        tstack, torch.tensor(plane), tdata.view_valid, params, offs,
+        tstack, torch.tensor(plane), tdata.view_valid, tparams, offs,
         stride=stride, cache=tcache).numpy()
     assert out.shape == ref.shape == (3, 64, 80)
     good = ref < 0.5
@@ -173,7 +174,8 @@ def test_rect_disparity_sweep(scene, stride):
             d, s, params, rh.statics, disps, stride=stride))(data_r, st))
 
     tstate = tst.pm_state_from_numpy(torch_parity.to_numpy(st), None, "cpu")
-    out = twr.rect_disparity_sweep(tdata, tstate, params,
+    out = twr.rect_disparity_sweep(tdata, tstate,
+                                   torch_parity.port_params(params),
                                    torch_parity.port_statics(rh.statics),
                                    disps, stride=stride).numpy()
     assert out.shape == ref.shape == (11, H, W)
@@ -195,17 +197,18 @@ def test_finish_classify_refine_stages(scene):
         weak=jnp.ones((H, W), jnp.uint8), key=jax.random.key(0))
     data_r = data._replace(rect=views)
     statics = torch_parity.port_statics(rh.statics)
+    tparams = torch_parity.port_params(params)
 
     fin = stages._finish_j(data_r, st, params)
     tst0 = tst.pm_state_from_numpy(torch_parity.to_numpy(st), None, "cpu")
-    tfin = tstages._finish_stage(tdata, tst0, params)
+    tfin = tstages._finish_stage(tdata, tst0, tparams)
     np.testing.assert_allclose(tfin.plane.numpy(), np.asarray(fin.plane),
                                rtol=1e-5, atol=1e-5)
 
     # Classify and refine from the JAX finish state.
     tfin = tst.pm_state_from_numpy(torch_parity.to_numpy(fin), None, "cpu")
     cls = stages._classify_j(data_r, fin, params, rh.statics)
-    tcls = tstages._classify_stage(tdata, tfin, params, statics)
+    tcls = tstages._classify_stage(tdata, tfin, tparams, statics)
     weak_j = np.asarray(cls.weak)
     assert len(np.unique(weak_j)) == 3          # weak, strong and unknown
     assert (tcls.weak.numpy() == weak_j).mean() >= 0.98
@@ -217,7 +220,7 @@ def test_finish_classify_refine_stages(scene):
     ref = np.asarray(stages._refine_j(data_r, cls, params,
                                       rh.statics).plane)[..., 3]
     tcls = tst.pm_state_from_numpy(torch_parity.to_numpy(cls), None, "cpu")
-    out = tstages._refine_stage(tdata, tcls, params, statics).plane[..., 3]
+    out = tstages._refine_stage(tdata, tcls, tparams, statics).plane[..., 3]
     moved = ref != noisy[..., 3]
     assert moved.mean() > 0.05
     assert np.isclose(out.numpy(), ref, rtol=1e-4, atol=0).mean() >= 0.98

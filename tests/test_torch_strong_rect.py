@@ -61,7 +61,9 @@ def _port_state(st_j, key):
 def test_init_stage(setup):
     s = setup
     ts0 = _port_state(s["st0"], torch_parity.JaxKey(s["st0"].key))
-    ts1 = tsr.initialize_rect(s["tdata"], ts0, s["params"], s["statics"])
+    ts1 = tsr.initialize_rect(s["tdata"], ts0,
+                              torch_parity.port_params(s["params"]),
+                              s["statics"])
     ref = torch_parity.to_numpy(s["st1"])
     np.testing.assert_allclose(ts1.plane.numpy(), ref.plane, rtol=1e-5,
                                atol=1e-5)
@@ -87,7 +89,8 @@ def test_one_strong_iteration(setup, propagate_stride):
         s["rh"].statics))
     ts1 = _port_state(s["st1"], None)
     out = tstages._strong_iter(s["tdata"], ts1, 0,
-                               torch_parity.JaxKey(key_it), params,
+                               torch_parity.JaxKey(key_it),
+                               torch_parity.port_params(params),
                                s["statics"])
     close = np.isclose(out.plane.numpy(), ref.plane, rtol=1e-4,
                        atol=1e-4).all(-1)

@@ -1,6 +1,6 @@
 """The PyTorch port's pass-A sweep end to end against the JAX package.
 
-The port's ``process_problem`` (folder loaded through ``dpe_mvs_tpu.io``)
+The port's ``process_problem`` (inputs loaded through ``dpe_mvs_tpu.io``)
 and JAX ``run_sweep_staged(rstat=...)`` on the same 96x72x3 plane scene,
 each with its own random stream: both must recover the ground truth (median
 relative depth error < 2%, valid > 50%, the bar of test_tpu.py), and their
@@ -51,12 +51,12 @@ def test_pass_a_sweep_matches_jax(folder_scene):
     cfg = EngineConfig()
     v_pad = VIEWS - 1
 
-    tschedule.process_problem(problem, params, 1, 1, v_pad, cfg,
-                              device="cpu")
-    ours = formats.read_dmb(problem.result_folder / "depths.dmb")
-
     inputs = scene_mod.load_problem_inputs(
         problem, 1, need_prior=False, need_weak=False, need_src_depths=False)
+    tschedule.process_problem(problem, torch_parity.port_params(params), 1,
+                              1, v_pad, torch_parity.port_engine_config(cfg),
+                              device="cpu", inputs=inputs)
+    ours = formats.read_dmb(problem.result_folder / "depths.dmb")
     rh = rectcost.build_rect_host(inputs.cameras, W, H, v_pad)
     views = rectcost.build_rect_views(rh, inputs.images, None,
                                       cameras=inputs.cameras)
@@ -103,7 +103,7 @@ def test_sweep_inputs_match(folder_scene):
         need_src_depths=False)
     v_pad = VIEWS
     ref = torch_parity.to_numpy(st_mod.build_sweep_data(inputs, v_pad))
-    ours = tst.build_sweep_data(inputs, v_pad, "cpu")
+    ours = tst.build_sweep_data(inputs, v_pad, device="cpu")
     for name in ("ref_image", "src_images", "R_rel", "t_rel", "baseline",
                  "view_valid", "src_depths", "depth_min", "depth_max",
                  "edge", "edge_low", "label"):
@@ -151,22 +151,36 @@ def test_cv2_free_renderer_matches_folder_scene(folder_scene):
 
 
 def test_process_problem_rejects_later_passes(tmp_path):
+    """What is not ported yet raises, naming its slice: loading a dense
+    folder (slice 3) and the exact engine (slice 5). A pass with the weak
+    machinery or edges needs the support maps."""
+    from dpe_mvs_tpu_torch import config as tcfg
+    from dpe_mvs_tpu_torch.engine import stages as tstages
     mem = tsynth.make_plane_scene(width=32, height=24, num_views=2, seed=1)
     prob = tschedule.Problem(result_folder=tmp_path, ref_image_id=0)
-    for params in (schedule_params(PatchMatchParams(), 1, None),
-                   schedule_params(PatchMatchParams(), 0, 0)):
-        with pytest.raises(NotImplementedError, match="slice 2"):
-            tschedule.process_problem(prob, params, 1, 1, 1, EngineConfig(),
-                                      device="cpu",
+    pass_a = tcfg.schedule_params(tcfg.PatchMatchParams(), 0, None)
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        tschedule.process_problem(prob, pass_a, 1, 1, 1, tcfg.EngineConfig(),
+                                  device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        tstages.check_engine(None)
+    for params in (tcfg.schedule_params(tcfg.PatchMatchParams(), 1, None),
+                   tcfg.schedule_params(tcfg.PatchMatchParams(), 1, 0)):
+        with pytest.raises(ValueError, match="support_maps"):
+            tschedule.process_problem(prob, params, 1, 1, 1,
+                                      tcfg.EngineConfig(), device="cpu",
                                       inputs=mem.problem_inputs(0))
 
 
 def test_cuda_device_is_never_replaced(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device exists here")
+    from dpe_mvs_tpu_torch import config as tcfg
     mem = tsynth.make_plane_scene(width=32, height=24, num_views=2, seed=1)
     prob = tschedule.Problem(result_folder=tmp_path, ref_image_id=0)
-    with pytest.raises(RuntimeError, match="not available"):
-        tschedule.process_problem(
-            prob, schedule_params(PatchMatchParams(), 0, None), 1, 1, 1,
-            EngineConfig(), device="cuda", inputs=mem.problem_inputs(0))
+    pass_a = tcfg.schedule_params(tcfg.PatchMatchParams(), 0, None)
+    for kw in ({"device": "cuda"}, {}):       # the card is the default
+        with pytest.raises(RuntimeError, match="not available"):
+            tschedule.process_problem(
+                prob, pass_a, 1, 1, 1, tcfg.EngineConfig(),
+                inputs=mem.problem_inputs(0), **kw)

@@ -13,9 +13,10 @@ torch.set_num_threads(1)
 
 
 class JaxKey:
-    """The port's key protocol (``split``, ``fold_in``, ``uniform``) backed by
-    ``jax.random`` on the CPU: port functions given a JaxKey draw the very
-    numbers the JAX functions draw from the same JAX key."""
+    """The port's key protocol (``split``, ``fold_in``, ``uniform``,
+    ``randint``) backed by ``jax.random`` on the CPU: port functions given a
+    JaxKey draw the very numbers the JAX functions draw from the same JAX
+    key."""
 
     def __init__(self, key):
         self.key = key
@@ -40,6 +41,11 @@ class JaxKey:
         u = jax.random.uniform(self.key, tuple(shape), minval=arr(lo),
                                maxval=arr(hi))
         return torch.from_numpy(np.array(u))
+
+    def randint(self, shape, lo, hi) -> torch.Tensor:
+        import jax
+        r = jax.random.randint(self.key, tuple(shape), int(lo), int(hi))
+        return torch.from_numpy(np.array(r))
 
 
 def assert_costs_close(out, ref, atol=1e-4, frac=0.999, atol_max=2e-4):
@@ -80,3 +86,89 @@ def port_statics(statics_j):
     return trc.RectStatics(f_transposed=statics_j.f_transposed,
                            b_transposed=statics_j.b_transposed,
                            hp=statics_j.hp, wp=statics_j.wp)
+
+
+def port_params(p):
+    """The JAX package's PatchMatchParams as the port's, field by field."""
+    import dataclasses
+    from dpe_mvs_tpu_torch import config as tcfg
+    d = dataclasses.asdict(p)
+    d["state"] = tcfg.RunState(int(d["state"]))
+    return tcfg.PatchMatchParams(**d)
+
+
+def port_engine_config(c):
+    """The JAX package's EngineConfig as the port's, field by field."""
+    import dataclasses
+    from dpe_mvs_tpu_torch import config as tcfg
+    d = dataclasses.asdict(c)
+    d["profile"] = tcfg.DatasetProfile(**d["profile"])
+    return tcfg.EngineConfig(**d)
+
+
+def weak_scene(folder, *, width=48, height=36, views=3, seed=3,
+               geom=True, key=11):
+    """JAX-side inputs of a later-round sweep on the plane scene with a
+    texture-less patch (``weak_patch=True``), at the size the port's weak
+    tests use.
+
+    Priors stand in for an earlier sweep's writeback: ground-truth depths
+    within +-2% and normals, random selected views, the patch labelled WEAK
+    and 3% of the pixels UNKNOWN; the source views' depth maps are their
+    ground truth within +-1%. The support maps come from
+    ``dpe_mvs_tpu.edges.dual_level`` (fine edges of the image and of its
+    half-size copy; coarse labels with the low-resolution threshold, which
+    labels regions at this size). ``geom`` selects pass B
+    (``schedule_params(base, 1, 0)``) or round-1 pass A
+    (``schedule_params(base, 1, None)``)."""
+    import types
+
+    import cv2
+    import jax
+    from dpe_mvs_tpu.config import PatchMatchParams, PixelState, \
+        schedule_params
+    from dpe_mvs_tpu.edges import dual_level
+    from dpe_mvs_tpu.engine import rectcost
+    from dpe_mvs_tpu.engine import state as st_mod
+    from dpe_mvs_tpu.io import scene as scene_mod
+    from dpe_mvs_tpu.utils.synthetic import make_plane_scene
+
+    sc = make_plane_scene(str(folder), width=width, height=height,
+                          num_views=views, seed=seed, weak_patch=True)
+    problem = scene_mod.generate_sample_list(sc.folder)[0]
+    inputs = scene_mod.load_problem_inputs(
+        problem, 1, need_prior=False, need_weak=False, need_src_depths=False)
+    H, W = height, width
+    rng = np.random.default_rng(seed)
+    inputs.prior_depth = (sc.gt_depths[0] * rng.uniform(0.98, 1.02, (H, W))
+                          ).astype(np.float32)
+    inputs.prior_normal = sc.gt_normals[0].astype(np.float32)
+    inputs.prior_selected_views = rng.integers(
+        1, 2 ** (views - 1), (H, W)).astype(np.int32)
+    weak = np.full((H, W), int(PixelState.STRONG), np.uint8)
+    weak[sc.weak_region] = int(PixelState.WEAK)
+    weak[rng.uniform(size=(H, W)) < 0.03] = int(PixelState.UNKNOWN)
+    inputs.weak_info = weak
+    inputs.src_depths = np.stack(
+        [sc.gt_depths[i] * rng.uniform(0.99, 1.01, (H, W))
+         for i in range(views)]).astype(np.float32)
+
+    img = inputs.images[0].astype(np.uint8)
+    edge = dual_level.fine_edges(img, True) > 0
+    edge_low = dual_level.fine_edges(
+        cv2.resize(img, (W // 2, H // 2), interpolation=cv2.INTER_LINEAR),
+        True) > 0
+    label = dual_level.coarse_labels(img, 0, False)
+
+    params = schedule_params(PatchMatchParams(), 1, 0 if geom else None)
+    v_pad = views - 1
+    rh = rectcost.build_rect_host(inputs.cameras, W, H, v_pad)
+    rviews = rectcost.build_rect_views(
+        rh, inputs.images, inputs.src_depths[1:] if geom else None,
+        cameras=inputs.cameras)
+    data = st_mod.build_sweep_data(inputs, v_pad, edge, edge_low, label)
+    st0 = st_mod.init_pm_state(inputs, v_pad, jax.random.key(key), True)
+    return types.SimpleNamespace(
+        sc=sc, problem=problem, inputs=inputs, maps=(edge, edge_low, label),
+        params=params, v_pad=v_pad, rh=rh, views=rviews,
+        data=data._replace(rect=rviews), st0=st0)
