@@ -7,9 +7,14 @@ bilinear_x is exact against the JAX math evaluated op by op; compiled, XLA
 on the CPU contracts ``g0 * (1 - f) + g1 * f`` into a fused multiply-add, so
 there the two agree to one float32 rounding of the lerp (rtol 1e-6).
 
+CPU also: the launch plan (``launch_plan``), which decides the vector
+flag, staged or unstaged rows, the shared memory and the persistent grid.
+
 GPU (marked ``gpu``, skipped without a CUDA device): the CUDA kernels
-against the plain versions, bit-exact, at ragged shapes and at shapes of the
-800x600 main path; the wrappers' input checks and launch counters.
+against the plain versions, bit-exact, at ragged shapes, at shapes of the
+800x600 main path and in every branch of the plan (vector and word I/O,
+rows staged by bulk copy or read through __ldg); the wrappers' input checks
+and launch counters.
 """
 import numpy as np
 import pytest
@@ -111,6 +116,93 @@ def test_cpu_path_launches_nothing():
 
 
 # --------------------------------------------------------------------------
+# Launch plan (pure Python)
+# --------------------------------------------------------------------------
+
+N_SM = 132
+A16 = 1 << 20                     # a 16-byte aligned address
+
+
+@pytest.mark.parametrize("L", [480, 481, 482, 483])
+@pytest.mark.parametrize("idx_off,out_off", [(0, 0), (4, 0), (0, 8)])
+def test_plan_vector_flag(L, idx_off, out_off):
+    p = trg.launch_plan(96, 800, L, A16, A16 + idx_off, A16 + out_off, N_SM)
+    assert p.vec == (L % 4 == 0 and idx_off == 0 and out_off == 0)
+
+
+# The widest rows that two buffers and the barriers fit into the 48 KB a
+# launch gets without opting in, and the next rows of 16 bytes.
+W_STAGE_MAX = (48 * 1024 - 16) // 8 // 4 * 4          # 6140
+W_STAGE_OVER = W_STAGE_MAX + 4                         # 6144
+
+
+@pytest.mark.parametrize("W", [1, 3, 800, 1024, W_STAGE_MAX, W_STAGE_OVER,
+                               70001])
+@pytest.mark.parametrize("img_off", [0, 4])
+def test_plan_stage_budget(W, img_off):
+    """Staged only where the bulk copy can move the rows: 16-byte rows
+    (W % 4 == 0), a 16-byte aligned image, and the block's whole shared
+    memory (two row buffers and two 8-byte mbarriers) within 48 KB."""
+    H, L = 960, 8192
+    p = trg.launch_plan(H, W, L, A16 + img_off, A16, A16, N_SM, staged=True)
+    assert p.staged == (W % 4 == 0 and img_off == 0 and W <= W_STAGE_MAX)
+    if not p.staged:
+        assert p.smem == 0
+        return
+    assert p.smem == 2 * W * 4 + 2 * 8 <= 48 * 1024
+    # Never more blocks than rows, never more than the resident slots.
+    assert 1 <= p.grid <= min(H, N_SM * trg.BLOCKS_PER_SM)
+
+
+def test_plan_shape_class_choice():
+    # A row word feeding >= STAGE_MIN_REUSE outputs is staged by default.
+    r = trg.STAGE_MIN_REUSE
+    assert trg.launch_plan(960, 1024, 1024 * r, A16, A16, A16, N_SM).staged
+    assert not trg.launch_plan(960, 1024, 1024 * r - 4, A16, A16, A16,
+                               N_SM).staged
+    for staged in (False, True):
+        assert trg.launch_plan(960, 1024, 8192, A16, A16, A16, N_SM,
+                               staged=staged).staged == staged
+
+
+@pytest.mark.parametrize("H", [65535, 65536, 70001, 2 ** 31 + 5])
+@pytest.mark.parametrize("staged", [False, True])
+def test_plan_persistent_grid_tall(H, staged):
+    """H > 65535 rides a 1-D persistent grid: the block count stays at the
+    resident slots however tall the array, and the blocks' passes or rows
+    cover every row."""
+    W, L = 8, 8
+    p = trg.launch_plan(H, W, L, A16, A16, A16, N_SM, staged=staged)
+    slots = N_SM * trg.BLOCKS_PER_SM
+    assert p.staged == staged
+    if staged:
+        assert p.grid == min(slots, H)
+        assert p.grid * -(-H // p.grid) >= H
+    else:
+        passes = -(-(H * L) // trg.PASS_ELEMS)
+        assert p.grid == min(slots, passes)
+        assert p.grid * -(-passes // p.grid) * trg.PASS_ELEMS >= H * L
+
+
+def test_plan_small_launch_grid():
+    p = trg.launch_plan(3, 5, 7, A16, A16, A16, N_SM, staged=False)
+    assert (p.vec, p.staged, p.grid) == (False, False, 1)
+    p = trg.launch_plan(3, 8, 7, A16, A16, A16, N_SM, staged=True)
+    assert (p.vec, p.staged, p.grid, p.smem) == (False, True, 3, 80)
+
+
+@pytest.mark.parametrize("H", [960, 2400, 7200, 70001])
+def test_plan_stage_rows(H):
+    """A staged block holds one image row per buffer, whatever H: the
+    shared memory does not grow with H, and the grid takes one block per
+    row up to the resident slots."""
+    p = trg.launch_plan(H, 800, 8192, A16, A16, A16, N_SM, staged=True)
+    assert p.staged
+    assert p.smem == 16 + 2 * 800 * 4
+    assert p.grid == min(H, N_SM * trg.BLOCKS_PER_SM)
+
+
+# --------------------------------------------------------------------------
 # GPU tier
 # --------------------------------------------------------------------------
 
@@ -163,3 +255,88 @@ def test_gpu_wrapper_rejects_bad_input():
     trg.row_gather(img, ix)
     trg.row_gather(img, ix)
     assert trg.LAUNCHES == {"row_gather": 2, "bilinear_x": 1}
+
+
+def _words(a):
+    return a.view(torch.int32)
+
+
+def _gpu_case(seed, H, W, L, x_lo=-7.0, x_hi=None):
+    """uint32 image words with quiet-NaN payloads in every third column,
+    float32 rows for the lerp, columns with +-inf and huge values."""
+    img, x, ix = _inputs(seed, H, W, L)
+    rng = np.random.default_rng(seed + 1)
+    words = rng.integers(0, 2 ** 32, (H, W), dtype=np.uint64) \
+        .astype(np.uint32)
+    words[:, ::3] = 0x7FC00001
+    x.ravel()[::5] = np.inf
+    x.ravel()[1::7] = -np.inf
+    x.ravel()[2::11] = 1e30
+    return (torch.from_numpy(words).cuda(), torch.from_numpy(img).cuda(),
+            torch.from_numpy(x).cuda(), torch.from_numpy(ix).cuda())
+
+
+def _check_both(words, img, x, ix, staged):
+    """Both kernels bit-exact in the plan's variant (``staged`` None, through
+    the public wrappers) or the one ``staged`` asks for."""
+    if staged is None:
+        got = trg.row_gather(words, ix)
+    else:
+        got = trg._launch("row_gather", words, ix, staged)
+    assert got.dtype == torch.uint32
+    assert torch.equal(_words(got), _words(trg.row_gather_ref(
+        words.view(torch.int32), ix)))
+    if staged is None:
+        got = trg.bilinear_x(img, x)
+    else:
+        got = trg._launch("bilinear_x", img, x, staged)
+    torch.cuda.synchronize()
+    assert torch.equal(_words(got), _words(trg.bilinear_x_ref(img, x)))
+
+
+@gpu
+@pytest.mark.parametrize("staged", [None, False, True])
+@pytest.mark.parametrize("L", [37, 64])
+@pytest.mark.parametrize("W", [1, 2, 3, 800, 1024, 70001])
+def test_gpu_plan_branches_bit_exact(W, L, staged):
+    """Every branch of the plan: word I/O (L = 37) and vector I/O (L = 64);
+    rows staged by bulk copy (W % 4 == 0) or read through __ldg (unstaged;
+    W % 4 != 0; W = 70001 beyond the stage budget)."""
+    H = 5 if W == 70001 else 33
+    _check_both(*_gpu_case(W + L, H, W, L), staged)
+
+
+@gpu
+@pytest.mark.parametrize("staged", [None, False, True])
+def test_gpu_misaligned_slices_bit_exact(staged):
+    """Contiguous inputs at a 4-byte (not 16-byte) offset: word I/O, rows
+    read through __ldg whatever ``staged`` asks."""
+    H, W, L = 40, 1024, 2048
+    words, img, x, ix = _gpu_case(5, H + 1, W, L)
+    sl = [t.reshape(-1)[1:1 + H * n].view(H, n)
+          for t, n in ((words, W), (img, W), (x, L), (ix, L))]
+    assert all(t.is_contiguous() and t.data_ptr() % 16 == 4 for t in sl)
+    _check_both(*sl, staged)
+
+
+@gpu
+@pytest.mark.parametrize("staged", [False, True])
+def test_gpu_tall_bit_exact(staged):
+    """H = 70001 > 65535 with vector I/O and bulk-copied tiles."""
+    _check_both(*_gpu_case(3, 70001, 8, 8), staged)
+
+
+@gpu
+@pytest.mark.parametrize("staged", [None, False, True])
+@pytest.mark.parametrize("H,W,L", [(3, W_STAGE_MAX, 2 * W_STAGE_MAX),
+                                   (3, W_STAGE_OVER, 2 * W_STAGE_OVER),
+                                   (12672, 1024, 2048)])
+def test_gpu_stage_budget_bit_exact(H, W, L, staged):
+    """The largest staged block (W = 6140: 48 KB of shared memory with the
+    barriers), the first row too wide to stage (W = 6144), and a tall staged
+    launch at the main path's width."""
+    words, img, x, ix = _gpu_case(W + H, H, W, L)
+    p = trg.launch_plan(H, W, L, img.data_ptr(), x.data_ptr(), 0,
+                        trg._n_sm(img.device.index), staged)
+    assert p.staged == (staged is not False and W <= W_STAGE_MAX)
+    _check_both(words, img, x, ix, staged)
