@@ -18,19 +18,23 @@ sources' depths back from the pass-A writeback. Phases:
      inputs at a 4-byte offset, staged and unstaged, the widest staged rows
      (W = 6140, 48 KB of shared memory) and the first too wide (W = 6144), a
      tall staged launch (H = 12672), uint32 words with NaN payloads, +-inf
-     columns), gather2d in both of the JAX package's size
-     regimes (on 32-bit words carrying NaN payloads, scattered and
-     clustered); gather2d timed at the > 6 MB-per-channel case;
+     columns) and of the three gather2d entries: gather2d in both of the
+     JAX package's size regimes, C in {1, 3, 6, 9, 17}, clustered and
+     scattered queries, inputs at a 4-byte offset; gather2d_hwc at C in
+     {1, 2, 3, 4, 6, 16} over bool, uint8 and 32-bit words, at a 4-byte
+     offset and on strided views; gather2d_pick with channels out of
+     range. gather2d timed at the > 6 MB-per-channel case (row 4);
   4. render the scene;
   5. pass A, all problems, with the launch counters set to 0 just before and
-     read just after; row_gather and bilinear_x must have launched;
+     read just after; row_gather and bilinear_x must have launched, and
+     none of the gather2d entries (pass A has no weak machinery);
   6. problem 0 after pass A, read back through the port's ``io.formats``:
      median relative depth error < 2% and valid share > 50%;
   7. pass B, all problems (edge and label maps from the in-memory stand-in
      ``utils.synthetic.support_maps``), counters set to 0 just before and
-     read just after; every kernel must have launched; the weak share before
-     pass B must be > 0; problem 0 must meet the same bar and be no worse
-     than its pass-A error + 0.003;
+     read just after; every kernel must have launched; the weak share
+     before pass B must be > 0; problem 0 must meet the same bar and be no
+     worse than its pass-A error + 0.003;
   8. each kernel against its plain version again, bit-exact, on the inputs
      captured from the pass-A and pass-B runs. At each run's dominant shape
      the kernel (row_gather and bilinear_x: both variants, unstaged and
@@ -45,9 +49,12 @@ sources' depths back from the pass-A writeback. Phases:
      cold time, beside the same sum of bounds; for the row kernels both
      variants at every shape, in turns with a second copy of the unstaged
      one (their difference is the timing noise), and the sweep's time for
-     each choice of the plan's staging threshold. Then launches per sweep, and
-     the warm time of one more pass-B sweep with a synchronised per-stage
-     breakdown and the peak device memory.
+     each choice of the plan's staging threshold; gather2d_hwc and
+     gather2d_pick in turns with
+     the routes gather_map and the line-of-sight test took before them
+     (old_gather_map, old_free_at). Then launches per sweep, and the warm
+     time of one more pass-B sweep with a synchronised per-stage breakdown
+     and the peak device memory.
 
 Exits non-zero, without the result lines, when there is no CUDA device or
 any phase fails. The line before the last holds the kernel records as JSON;
@@ -72,22 +79,32 @@ SWEEP_REPS = 50                    # launches per captured shape (per sweep)
 # Staging thresholds whose per-sweep time phase 8 reports: the plan stages
 # where L >= r * W (inf: never).
 REUSE_CHOICES = (0.25, 0.5, 1, 2, 4, 8, 16, float("inf"))
+GATHERS = ("gather2d", "gather2d_hwc", "gather2d_pick")
 FLUSH_BYTES = 256 * 2**20          # > 5x the 50 MB L2
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12              # float32 outside the tensor cores (same)
 SOURCES = {"row_gather": "dpe_mvs_tpu_torch/csrc/rowgather.cu",
            "bilinear_x": "dpe_mvs_tpu_torch/csrc/rowgather.cu",
-           "gather2d": "dpe_mvs_tpu_torch/csrc/gather2d.cu"}
+           **{n: "dpe_mvs_tpu_torch/csrc/gather2d.cu" for n in GATHERS}}
+_G2D_TPU = ("dpe_mvs_tpu/ops/gather2d.py:86 (_gather2d_vmem_kernel) and "
+            "dpe_mvs_tpu/ops/gather2d.py:127 (_gather2d_kernel)")
 REPLACES = {"row_gather": "dpe_mvs_tpu/ops/rowgather.py:59",
             "bilinear_x": "dpe_mvs_tpu/ops/rowgather.py:122",
-            "gather2d": "dpe_mvs_tpu/ops/gather2d.py:86 "
-                        "(_gather2d_vmem_kernel) and "
-                        "dpe_mvs_tpu/ops/gather2d.py:127 (_gather2d_kernel)"}
+            "gather2d": _G2D_TPU,
+            "gather2d_hwc": _G2D_TPU + " as reached by "
+                            "dpe_mvs_tpu/ops/sampling.py:82 gather_map",
+            "gather2d_pick": _G2D_TPU + " as reached by "
+                             "dpe_mvs_tpu/ops/support.py:308 "
+                             "LineOfSight.crossing free_at"}
 LIBRARY = {"row_gather": "torch.gather, int64 index pre-clamped",
            "bilinear_x": "torch.nn.functional.grid_sample (bilinear, "
                          "border, align_corners) on a precomputed grid",
            "gather2d": "advanced indexing imgs[:, iy, ix], int64 indices "
-                       "pre-clamped"}
+                       "pre-clamped",
+           "gather2d_hwc": "advanced indexing arr[iy, ix] on (H, W, C), "
+                           "int64 indices pre-clamped",
+           "gather2d_pick": "advanced indexing imgs[ic, iy, ix], int64 "
+                            "indices pre-clamped"}
 
 
 def fail(msg: str) -> None:
@@ -110,14 +127,18 @@ class Capture:
         self.seen = {n: {} for n in entries}
 
     def _wrap(self, name):
+        import torch
         fn = self.orig[name]
         seen = self.seen[name]
 
         def wrapped(*args):
-            sig = tuple((tuple(a.shape), str(a.dtype)) for a in args)
+            sig = tuple((tuple(a.shape), str(a.dtype), tuple(a.stride()))
+                        for a in args)
             rec = seen.get(sig)
-            if rec is None:
-                seen[sig] = rec = [0, [a.clone() for a in args]]
+            if rec is None:                    # a copy with the same strides
+                seen[sig] = rec = [0, [torch.empty_strided(
+                    a.shape, a.stride(), dtype=a.dtype, device=a.device
+                ).copy_(a) for a in args]]
             rec[0] += 1
             return fn(*args)
         return wrapped
@@ -174,11 +195,32 @@ def bound(name, args, granule: int = 1):
     counts touched image words in whole 32-byte sectors instead, the least
     that device memory can deliver."""
     import torch
-    if name == "gather2d":
-        imgs, iy, ix = args
+    if name == "gather2d_hwc":
+        # Bytes: a pixel's row of C elements is contiguous.
+        img, iy, ix = args
+        Hh, Ww, C = img.shape
+        es = img.element_size()
+        row = C * es
+        pix = (iy.clamp(0, Hh - 1).long() * img.stride(0)
+               + ix.clamp(0, Ww - 1).long() * img.stride(1)).reshape(-1)
+        if granule == 1:
+            touched = torch.unique(pix).numel() * row
+        else:
+            b = pix * es
+            sectors = torch.cat([(b + min(k, row - 1)) // 32
+                                 for k in range(0, row + 31, 32)])
+            touched = torch.unique(sectors).numel() * 32
+        n_bytes = touched + 8 * iy.numel() + iy.numel() * row
+        return n_bytes / HBM_BYTES_PER_S * 1e3, "bytes"
+    if name in ("gather2d", "gather2d_pick"):
+        imgs, *idx = args
         C = imgs.shape[0] if imgs.dim() == 3 else 1
         Hh, Ww = imgs.shape[-2:]
+        iy, ix = idx[-2:]
         words = iy.clamp(0, Hh - 1).long() * Ww + ix.clamp(0, Ww - 1).long()
+        if name == "gather2d_pick":
+            words = words + idx[0].clamp(0, C - 1).long() * (Hh * Ww)
+            C = 1
         touched = C * torch.unique(words // granule).numel() * granule
         n_out, ops = C * iy.numel(), 0
     elif name == "row_gather":
@@ -224,6 +266,19 @@ def library_call(name, args):
         return lambda: torch.nn.functional.grid_sample(
             inp, grid, mode="bilinear", padding_mode="border",
             align_corners=True)
+    if name == "gather2d_hwc":
+        img, iy, ix = args
+        Hh, Ww = img.shape[:2]
+        iy64, ix64 = iy.clamp(0, Hh - 1).long(), ix.clamp(0, Ww - 1).long()
+        return lambda: img[iy64, ix64]
+    if name == "gather2d_pick":
+        imgs, ic, iy, ix = args
+        Cc, Hh, Ww = imgs.shape
+        ic64, iy64, ix64 = (ic.clamp(0, Cc - 1).long(),
+                            iy.clamp(0, Hh - 1).long(),
+                            ix.clamp(0, Ww - 1).long())
+        words = imgs.view(torch.int32) if imgs.dtype == torch.uint32 else imgs
+        return lambda: words[ic64, iy64, ix64]
     imgs, iy, ix = args
     Hh, Ww = imgs.shape[-2:]
     iy64, ix64 = iy.clamp(0, Hh - 1).long(), ix.clamp(0, Ww - 1).long()
@@ -231,6 +286,37 @@ def library_call(name, args):
     if words.dim() == 2:
         return lambda: words[iy64, ix64]
     return lambda: words[:, iy64, ix64]
+
+
+def old_gather_map(img, iy, ix):
+    """The route ``sampling.gather_map`` took before the channel-last entry,
+    on the (H, W, C) array and int32 indices it hands ``gather2d_hwc``:
+    channels moved first (a copy), narrow types widened to int32, the
+    channel-first ``gather2d``, channels moved last and narrowed back."""
+    import torch
+    from dpe_mvs_tpu_torch.ops import gather2d as g2d
+    S = tuple(iy.shape)
+    n = iy.numel()
+    q2 = (n // S[-1] if S[-1] else 0, S[-1]) if len(S) >= 2 else (1, n)
+    flat = img.permute(2, 0, 1)
+    if img.dtype in (torch.bool, torch.uint8, torch.int8):
+        flat = flat.to(torch.int32)
+    out = g2d.gather2d(flat.contiguous(), iy.reshape(q2).contiguous(),
+                       ix.reshape(q2).contiguous())
+    return out.permute(1, 2, 0).to(img.dtype).reshape(*S, img.shape[2])
+
+
+def old_free_at(free_dist, bins, iy, ix):
+    """The route ``LineOfSight.crossing`` took to the free path of each
+    segment's bin before the pick entry, on the indices it hands
+    ``gather2d_pick`` (``bins`` int64, as ``argmin`` gives them): the
+    endpoint clamped, all 16 direction planes gathered channel-last through
+    :func:`old_gather_map`, then one picked (``sampling.pick_last``)."""
+    from dpe_mvs_tpu_torch.ops import sampling
+    Hl, Wl = free_dist.shape[1:]
+    f16 = old_gather_map(free_dist.permute(1, 2, 0), iy.clamp(0, Hl - 1),
+                         ix.clamp(0, Wl - 1))
+    return sampling.pick_last(f16, bins)
 
 
 def main() -> None:
@@ -261,9 +347,12 @@ def main() -> None:
     from dpe_mvs_tpu_torch.pipeline import schedule as sch
     from dpe_mvs_tpu_torch.utils.synthetic import make_plane_scene, \
         support_maps
-    modules = {"row_gather": rg, "bilinear_x": rg, "gather2d": g2d}
+    modules = {"row_gather": rg, "bilinear_x": rg,
+               **{n: g2d for n in GATHERS}}
     plain = {"row_gather": rg.row_gather_ref, "bilinear_x": rg.bilinear_x_ref,
-             "gather2d": g2d.gather2d_ref}
+             "gather2d": g2d.gather2d_ref,
+             "gather2d_hwc": g2d.gather2d_hwc_ref,
+             "gather2d_pick": g2d.gather2d_pick_ref}
 
     def reset():
         rg.reset_launches()
@@ -287,9 +376,16 @@ def main() -> None:
         scratch.fill_(1.0)
         scratch.sum()
 
+    def bits(t):
+        """The tensor's bits: 32-bit words as int32, anything else as
+        bytes."""
+        if t.element_size() == 4:
+            return t.view(torch.int32)
+        return t.contiguous().view(torch.uint8)
+
     def exact(name, a, b, where):
         torch.cuda.synchronize()
-        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+        if a.shape != b.shape or not torch.equal(bits(a), bits(b)):
             fail(f"{name} differs from its plain version at {where}")
 
     def variant(name, staged, *args):
@@ -300,10 +396,12 @@ def main() -> None:
         return rg._launch(name, *args, staged=staged)
 
     def off4(t):
-        """A contiguous copy of t that starts 4 bytes past a 16-byte
-        boundary."""
-        flat = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
-        return flat[1:1 + t.numel()].view(t.shape).copy_(t)
+        """A contiguous copy of t that starts 4 bytes (8 for 8-byte
+        elements) past a 16-byte boundary."""
+        n = t.numel() * t.element_size()
+        o = max(4, t.element_size())
+        flat = torch.empty(n + 16, dtype=torch.uint8, device=t.device)
+        return flat[o:o + n].view(t.dtype).view(t.shape).copy_(t)
 
     phase("3. kernels vs plain versions, ragged shapes")
     g = torch.Generator(device=device).manual_seed(SEED)
@@ -343,59 +441,117 @@ def main() -> None:
                       variant("row_gather", staged, wd.view(torch.uint32), ii),
                       rg.row_gather_ref(wd, ii), where)
                 n_rg += 3
-    # gather2d: a channel <= 6 MB and > 6 MB (the JAX package's two TPU
-    # kernels), ragged, int32 words with NaN payloads, clustered and
-    # scattered queries.
+    # gather2d (channel-first): a channel <= 6 MB and > 6 MB (the JAX
+    # package's two TPU kernels), ragged, C in {1, 3, 6, 9, 17}, words with
+    # NaN payloads as float32 and int32, clustered and scattered queries; an
+    # image and indices 4 bytes off 16 (word index I/O).
+    def g2d_queries(h, w, qh, qw, clustered):
+        if clustered:
+            yy = torch.arange(qh, device=device)[:, None] * h // qh
+            xx = torch.arange(qw, device=device)[None, :] * w // qw
+            iy = (yy + torch.randint(-6, 6, (qh, qw), device=device,
+                                     generator=g)).to(torch.int32)
+            ix = (xx + torch.randint(-9, 9, (qh, qw), device=device,
+                                     generator=g)).to(torch.int32)
+            return iy, ix
+        return (torch.randint(-3, h + 3, (qh, qw), device=device,
+                              generator=g, dtype=torch.int32),
+                torch.randint(-3, w + 3, (qh, qw), device=device,
+                              generator=g, dtype=torch.int32))
+
+    def nan_words(*shape):
+        words = torch.randint(-2**31, 2**31 - 1, shape, device=device,
+                              generator=g, dtype=torch.int32)
+        words.view(-1)[::3] = 0x7FC00001                 # quiet-NaN payload
+        return words
+
     n_g = 0
     big = None
-    for (c, h, w, qh, qw) in [(1, 1, 1, 1, 1), (3, 17, 29, 5, 33),
-                              (6, 600, 800, 1201, 803),
+    for (c, h, w, qh, qw) in [(1, 1, 1, 1, 1), (1, 200, 256, 64, 256),
+                              (3, 17, 29, 5, 33), (6, 600, 800, 1201, 803),
+                              (9, 960, 1024, 4800, 800),
                               (9, 1920, 2048, 9600, 1600),
                               (17, 70, 33, 129, 257)]:
-        words = torch.randint(-2**31, 2**31 - 1, (c, h, w), device=device,
-                              generator=g, dtype=torch.int32)
-        words[:, ::3] = 0x7FC00001                       # quiet-NaN payload
-        imgs = words.view(torch.float32)
+        words = nan_words(c, h, w)
         for clustered in (True, False):
-            if clustered:
-                yy = torch.arange(qh, device=device)[:, None] * h // qh
-                xx = torch.arange(qw, device=device)[None, :] * w // qw
-                iy = (yy + torch.randint(-6, 6, (qh, qw), device=device,
-                                         generator=g)).to(torch.int32)
-                ix = (xx + torch.randint(-9, 9, (qh, qw), device=device,
-                                         generator=g)).to(torch.int32)
-            else:
-                iy = torch.randint(-3, h + 3, (qh, qw), device=device,
-                                   generator=g, dtype=torch.int32)
-                ix = torch.randint(-3, w + 3, (qh, qw), device=device,
-                                   generator=g, dtype=torch.int32)
-            for im in (imgs, words):
-                exact("gather2d", g2d.gather2d(im, iy, ix),
-                      g2d.gather2d_ref(im, iy, ix),
-                      f"({c}, {h}, {w}) x ({qh}, {qw})")
+            iy, ix = g2d_queries(h, w, qh, qw, clustered)
+            cases = [(words.view(torch.float32), iy, ix), (words, iy, ix)]
+            if c == 17:
+                cases.append(tuple(off4(t) for t in (words, iy, ix)))
+            for args in cases:
+                exact("gather2d", g2d.gather2d(*args),
+                      g2d.gather2d_ref(*args),
+                      f"({c}, {h}, {w}) x ({qh}, {qw}), clustered "
+                      f"{clustered}, offset {args[0].data_ptr() % 16}")
                 n_g += 1
-            if c == 9 and clustered:
+            if (c, h) == (9, 1920) and clustered:
                 big = (words, iy, ix)
+    # gather2d_hwc (channel-last): C in {1, 2, 3, 4, 6, 16}, bool, uint8 and
+    # NaN-payload words, contiguous and 4 bytes off 16, and the strided views
+    # gather_map reads in place (plane[..., :3], plane[..., 3]).
+    n_h = 0
+    for cc in (1, 2, 3, 4, 6, 16):
+        for dt in (torch.bool, torch.uint8, torch.int32):
+            h, w = 131, 77
+            if dt == torch.int32:
+                arr = nan_words(h, w, cc)
+            else:
+                arr = torch.randint(0, 256, (h, w, cc), device=device,
+                                    generator=g, dtype=torch.int32).to(dt)
+            iy, ix = g2d_queries(h, w, 37, 203, cc % 2 == 0)
+            for args in ((arr, iy, ix), tuple(off4(t) for t in (arr, iy, ix))):
+                exact("gather2d_hwc", g2d.gather2d_hwc(*args),
+                      g2d.gather2d_hwc_ref(*args),
+                      f"({h}, {w}, {cc}) {dt}, offset "
+                      f"{args[0].data_ptr() % 16}")
+                n_h += 1
+    plane = nan_words(600, 800, 4).view(torch.float32)
+    iy, ix = g2d_queries(600, 800, 600, 800, True)
+    for view in (plane[..., :3], plane[..., 3:], plane):
+        exact("gather2d_hwc", g2d.gather2d_hwc(view, iy, ix),
+              g2d.gather2d_hwc_ref(view, iy, ix), f"view {view.stride()}")
+        n_h += 1
+    # gather2d_pick: 16 direction planes, channels (beyond 32 bits) and
+    # positions out of range, word and vector index I/O.
+    n_p = 0
+    free = nan_words(16, 300, 400).view(torch.float32)
+    for S in ((600, 800), (1001,), (7, 5, 3)):
+        ic, iy, ix = (torch.randint(-2, hi, S, device=device, generator=g,
+                                    dtype=torch.int32)
+                      for hi in (18, 303, 403))
+        ic = ic.long()
+        ic.view(-1)[::7] = 2**40
+        ic.view(-1)[3::7] = -2**40
+        for args in ((ic, iy, ix), tuple(off4(t) for t in (ic, iy, ix))):
+            exact("gather2d_pick", g2d.gather2d_pick(free, *args),
+                  g2d.gather2d_pick_ref(free, *args), f"{S}")
+            n_p += 1
     print(f"row_gather, bilinear_x bit-exact in {n_rg} cases ("
           f"{len(shapes) + 1} shapes x 3 plan variants); gather2d bit-exact "
-          f"in {n_g} cases")
+          f"in {n_g} cases, gather2d_hwc in {n_h}, gather2d_pick in {n_p}")
     # Row 4 of the TPU kernel table: gather2d with a channel > 6 MB (the
     # JAX package's _gather2d_kernel regime), clustered queries.
-    t4 = {v: time_turns({"kernel": lambda: g2d.gather2d(*big),
-                         "library": library_call("gather2d", big),
-                         "plain": lambda: g2d.gather2d_ref(*big)},
-                        flush=fl)
+    fns4 = {"kernel": lambda: g2d.gather2d(*big),
+            "library": library_call("gather2d", big),
+            "plain": lambda: g2d.gather2d_ref(*big)}
+    t4 = {v: time_turns(fns4, flush=fl)
           for v, fl in (("cold", flush), ("warm", None))}
     b4, b4_by = bound("gather2d", big)
     s4 = bound("gather2d", big, granule=8)[0]
     print(f"gather2d > 6 MB per channel (9 x 1920x2048 int32 words, 9600x1600 "
-          f"clustered queries): kernel cold {t4['cold']['kernel']:.4f} / warm "
-          f"{t4['warm']['kernel']:.4f} ms, plain {t4['cold']['plain']:.4f} / "
-          f"{t4['warm']['plain']:.4f} ms, library {t4['cold']['library']:.4f}"
-          f" / {t4['warm']['library']:.4f} ms ({LIBRARY['gather2d']}), bound "
-          f"{b4:.4f} ms ({b4_by}), {s4:.4f} ms in whole 32-byte sectors, "
-          f"cold share of bound {b4 / t4['cold']['kernel']:.0%}")
-    del big
+          f"clustered queries): bound {b4:.4f} ms ({b4_by}), {s4:.4f} ms in "
+          f"whole 32-byte sectors; cold / warm ms, share of bound (cold):")
+    for k in fns4:
+        lib = f" ({LIBRARY['gather2d']})" if k == "library" else ""
+        print(f"  {k}{lib}: {t4['cold'][k]:.4f} / {t4['warm'][k]:.4f}, "
+              f"{b4 / t4['cold'][k]:.0%}")
+    row4 = {"shape": "9 x 1920x2048 words, 9600x1600 clustered queries",
+            **{f"{k}_cold_ms": t4["cold"][k] for k in fns4},
+            **{f"{k}_ms": t4["warm"][k] for k in fns4},
+            "bound_ms": b4, "sector_bound_ms": s4}
+    # The timed closures hold row 4's arrays: free them before the runs
+    # whose peak memory is reported.
+    del big, fns4, cases, args, plane, free, words, arr, iy, ix, ic
 
     phase("4. render scene")
     t0 = time.time()
@@ -457,6 +613,8 @@ def main() -> None:
     for name in ("row_gather", "bilinear_x"):
         if launches_a[name] <= 0:
             fail(f"kernel {name} was not launched by pass A")
+    if any(launches_a[name] for name in GATHERS):
+        fail("pass A launched a gather2d entry (it has no weak machinery)")
 
     phase("6. result of problem 0 after pass A")
     med_a, valid_a = depth_stats(problems[0])
@@ -497,6 +655,9 @@ def main() -> None:
     for name, n in launches_b.items():
         if n <= 0:
             fail(f"kernel {name} was not launched by pass B")
+    print(f"gather2d entries per pass-B sweep of problem 0: "
+          f"{sum(per_sweep_b[n] for n in GATHERS)} "
+          f"({', '.join(f'{n} {per_sweep_b[n]}' for n in GATHERS)})")
     med_b, valid_b = depth_stats(problems[0])
     print(f"problem 0 after pass B: median rel depth error {med_b:.5f}, "
           f"valid {valid_b:.4f} (pass A {med_a:.5f})")
@@ -522,7 +683,7 @@ def main() -> None:
         sig, (n, args) = max(seen.items(),
                              key=lambda kv: kv[1][0] * kv[1][1][1].numel())
         fn = getattr(modules[name], name)
-        if name == "gather2d":
+        if name in GATHERS:
             fns, chosen = {"kernel": lambda: fn(*args)}, "kernel"
         else:
             fns = {"unstaged": lambda: rg._launch(name, *args, staged=False),
@@ -534,8 +695,13 @@ def main() -> None:
         kinds = list(fns)
         fns["library"] = library_call(name, args)
         fns["plain"] = lambda: plain[name](*args)
-        # The launch floor: the same kernel on one row of 4 outputs.
-        tiny = [a[..., :1, :4].contiguous() for a in args]
+        # The launch floor: the same kernel on one row of 4 outputs (the
+        # gathers: 4 queries of the same image).
+        if name in GATHERS:
+            tiny = [args[0]] + [a.reshape(-1)[:4].reshape(1, 4).contiguous()
+                                for a in args[1:]]
+        else:
+            tiny = [a[..., :1, :4].contiguous() for a in args]
         fns["floor"] = lambda: fn(*tiny)
         cold = time_turns(fns, flush=flush)
         warm = time_turns(fns)
@@ -568,22 +734,33 @@ def main() -> None:
         kernel's cold time (median of SWEEP_REPS) and the same sum of
         bounds. The row kernels time both variants at every shape, in turns
         with a second copy of the unstaged one, and sum the sweep for each
-        staging threshold in REUSE_CHOICES. Returns the record's fields."""
+        staging threshold in REUSE_CHOICES; gather2d_hwc and gather2d_pick
+        time the route that gather_map and the line-of-sight test took
+        before them (old_gather_map, old_free_at) in turns with the new one.
+        Returns the record's fields."""
         fn = getattr(modules[name], name)
-        row = name != "gather2d"
+        row = name not in GATHERS
         sums = {"plan": 0.0, "bound": 0.0}
         if row:
             sums.update({"unstaged": 0.0, "staged": 0.0, "unstaged_again": 0.0,
                          **{r: 0.0 for r in REUSE_CHOICES}})
+        elif name != "gather2d":
+            sums["old_route"] = 0.0
         for sig, (n, args) in seen.items():
             c = counts0[name].get(sig, 0)
             if not c:
                 continue
             sums["bound"] += c * bound(name, args)[0]
             if not row:
-                sums["plan"] += c * time_turns(
-                    {"k": lambda: fn(*args)}, reps=SWEEP_REPS,
-                    flush=flush)["k"]
+                fns = {"new": lambda: fn(*args)}
+                if name == "gather2d_pick":
+                    fns["old"] = lambda: old_free_at(*args)
+                elif name == "gather2d_hwc":
+                    fns["old"] = lambda: old_gather_map(*args)
+                t = time_turns(fns, reps=SWEEP_REPS, flush=flush)
+                sums["plan"] += c * t["new"]
+                if "old" in t:
+                    sums["old_route"] += c * t["old"]
                 continue
             t = time_turns(
                 {"unstaged": lambda: rg._launch(name, *args, staged=False),
@@ -623,6 +800,11 @@ def main() -> None:
                 **{k: sums[k] for k in ("unstaged", "staged",
                                         "unstaged_again")},
                 "by_reuse": {f"{r:g}": sums[r] for r in REUSE_CHOICES}}
+        elif name != "gather2d":
+            rec["old_route_sweep_ms"] = sums["old_route"]
+            rec["new_route_sweep_ms"] = t
+            print(f"  route per sweep, in turns at every shape: old "
+                  f"{sums['old_route']:.3f} ms, new {t:.3f} ms")
         return rec
 
     def measure(name, seen, counts0, sweep_name):
@@ -637,9 +819,10 @@ def main() -> None:
             for name in ("row_gather", "bilinear_x")}
     recs.update({(name, "pass B"): measure(name, cap_b.seen[name], counts_b,
                                            "pass B")
-                 for name in ("row_gather", "bilinear_x", "gather2d")})
+                 for name in ("row_gather", "bilinear_x", *GATHERS)})
+    recs["gather2d", "pass B"]["row4"] = row4
     kernels = []
-    for name in ("row_gather", "bilinear_x", "gather2d"):
+    for name in ("row_gather", "bilinear_x", *GATHERS):
         print(f"{name}: launches per sweep (problem 0) pass A "
               f"{per_sweep_a[name]}, pass B {per_sweep_b[name]}; all "
               f"problems pass A {launches_a[name]}, pass B {launches_b[name]}")
@@ -654,6 +837,15 @@ def main() -> None:
                         "source": SOURCES[name], "replaces": REPLACES[name],
                         "launches": launches_b[name], "max_abs_err": 0.0,
                         **rec})
+    print(f"gather_map and line-of-sight routes per pass-B sweep (problem 0, "
+          f"cold, in turns): old "
+          f"{sum(recs[n, 'pass B']['old_route_sweep_ms'] for n in GATHERS[1:]):.3f}"
+          f" ms, new "
+          f"{sum(recs[n, 'pass B']['new_route_sweep_ms'] for n in GATHERS[1:]):.3f}"
+          f" ms; the three gather2d entries "
+          f"{sum(recs[n, 'pass B']['sweep_ms'] for n in GATHERS):.3f} ms per "
+          f"sweep, bound "
+          f"{sum(recs[n, 'pass B']['sweep_bound_ms'] for n in GATHERS):.3f} ms")
     del cap_a, cap_b, scratch
 
     p0 = problems[0]

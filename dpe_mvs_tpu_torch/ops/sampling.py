@@ -7,12 +7,14 @@ engine reaches:
     window reads and cost-map neighbourhood scans (last two axes of a tensor
     of any rank);
   - :func:`gather_map`, the clamped 2-D point gather of the weak-texture
-    machinery, through the ``gather2d`` kernel;
+    machinery, through the channel-last ``gather2d_hwc`` kernel;
   - :func:`take_last` / :func:`pick_last`, picks along a small last axis
     (``torch.gather``; the JAX package's one-hot chain there is a TPU
     workaround).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -52,27 +54,20 @@ def gather_map(arr: torch.Tensor, iy: torch.Tensor,
     """arr[(iy, ix)] with clamp; arr (H, W, ...) and integer index tensors of
     a common (broadcast) shape S -> (*S, ...).
 
-    Goes through :func:`.gather2d.gather2d`: the CUDA kernel on a CUDA
-    tensor, its plain version on the CPU. Narrow types (bool, uint8, int8)
-    ride the gather as int32 words, as the JAX package widens them."""
+    Goes through :func:`.gather2d.gather2d_hwc`: the CUDA kernel on a CUDA
+    tensor, its plain version on the CPU. The array stays channel-last and
+    keeps its dtype (a bool or uint8 map moves as bytes); a view whose
+    trailing axes are contiguous among themselves is read in place, any
+    other layout is copied to a contiguous one first."""
     H, W = arr.shape[:2]
     iy, ix = torch.broadcast_tensors(iy, ix)
-    S = tuple(iy.shape)
-    n = iy.numel()
-    q2 = (n // S[-1] if S[-1] else 0, S[-1]) if len(S) >= 2 else (1, n)
     trail = tuple(arr.shape[2:])
-    C = 1
-    for t in trail:
-        C *= t
-    dt = arr.dtype
-    flat = arr.reshape(H, W, C).permute(2, 0, 1)             # (C, H, W)
-    if dt in (torch.bool, torch.uint8, torch.int8):
-        flat = flat.to(torch.int32)
-    out = g2d.gather2d(flat.contiguous(),
-                       iy.reshape(q2).to(torch.int32).contiguous(),
-                       ix.reshape(q2).to(torch.int32).contiguous())
-    out = out.permute(1, 2, 0).to(dt)                        # (*q2, C)
-    return out.reshape(*S, *trail)
+    img = arr.reshape(H, W, math.prod(trail))
+    if img.shape[2] > 1 and img.stride(2) != 1:
+        img = img.contiguous()
+    out = g2d.gather2d_hwc(img, iy.to(torch.int32).contiguous(),
+                           ix.to(torch.int32).contiguous())
+    return out.reshape(*iy.shape, *trail)
 
 
 def take_last(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -24,6 +24,7 @@ from typing import NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
+from . import gather2d as g2d
 from . import sampling
 from .sampling import _shift_axis
 
@@ -239,17 +240,14 @@ class LineOfSight(NamedTuple):
         bin_ab = torch.argmin(diff, dim=-1)
         bin_ba = (bin_ab + 8) % 16
 
-        Hl, Wl = self.free_dist.shape[1:]
-        # All 16 direction planes ride one gather as channels at the
-        # (spatially local) endpoint coordinates; the segment's bin is picked
-        # afterwards.
-        chan = self.free_dist.permute(1, 2, 0)                # (Hl, Wl, 16)
-
         def free_at(b, x, y):
-            ix = torch.round(x).to(torch.int32).clamp(0, Wl - 1)
-            iy = torch.round(y).to(torch.int32).clamp(0, Hl - 1)
-            f16 = sampling.gather_map(chan, iy, ix)           # (..., 16)
-            return sampling.pick_last(f16, b)
+            # The segment's bin picks one direction plane per query; the
+            # gather clamps the endpoint to the map.
+            ic, iy, ix = torch.broadcast_tensors(
+                b, torch.round(y).to(torch.int32),
+                torch.round(x).to(torch.int32))
+            return g2d.gather2d_pick(self.free_dist, ic.contiguous(),
+                                     iy.contiguous(), ix.contiguous())
 
         fa = free_at(bin_ab, lx_a, ly_a)
         fb = free_at(bin_ba, lx_b, ly_b)

@@ -1,17 +1,23 @@
-"""The port's 2-D point gather (``ops/gather2d``, ``ops/sampling``) against
+"""The port's 2-D point gathers (``ops/gather2d``, ``ops/sampling``) against
 the JAX package.
 
 CPU: the plain version ``gather2d_ref`` (which the wrapper takes for CPU
 tensors) against JAX ``gather2d`` in Pallas interpret mode (the TPU kernels'
 own logic, both the VMEM and the forced HBM path) and on its CPU fast path;
-``gather_map`` against JAX ``gather_map``; the bf16 pair packing through the
-gather. Every comparison is exact, on the 32-bit words (NaN payloads
-included).
+``gather2d_hwc_ref`` against JAX ``gather_map`` and ``gather2d_pick_ref``
+against JAX ``pick_last(gather_map(...))``; ``gather_map`` against JAX
+``gather_map``; the bf16 pair packing through the gather; the launch plans
+(vector widths, tiles). Every comparison is exact, on the 32-bit words (NaN
+payloads included) or bytes.
 
-GPU (marked ``gpu``, skipped without a CUDA device): the CUDA kernel against
-the plain version, bit-exact, at ragged shapes, in both of the JAX package's
+GPU (marked ``gpu``, skipped without a CUDA device): each CUDA entry against
+its plain version, bit-exact, at ragged shapes and in every branch: the
+channel-first tiles with vector and word I/O, in both of the JAX package's
 size regimes (a channel up to 6 MB and above), with clustered and scattered
-queries; the wrapper's checks and launch counter.
+queries; the channel-last gather over bytes and words at every vector width,
+at a 4-byte offset, on strided views and, through ``gather_map``, on a view
+with permuted channels; the pick with channels out of range; the wrappers'
+checks and launch counters.
 """
 import numpy as np
 import pytest
@@ -184,13 +190,156 @@ def test_wrapper_rejects_bad_input():
         tg.gather2d(img, q, q[:, :4])
     with pytest.raises(ValueError):
         tg.gather2d(img[None], q, q)
+    with pytest.raises(TypeError):
+        tg.gather2d_pick(img.double(), q, q, q)
+    with pytest.raises(TypeError):
+        tg.gather2d_pick(img, q, q.long(), q)
+    with pytest.raises(TypeError):
+        tg.gather2d_pick(img, q.to(torch.int16), q, q)
+    with pytest.raises(TypeError):            # channels int64 only
+        tg.gather2d_pick(img, q, q, q)
+    with pytest.raises(ValueError):
+        tg.gather2d_pick(img, q[:, :4].long(), q, q)
+    with pytest.raises(ValueError):
+        tg.gather2d_hwc(img[0], q, q)
+    with pytest.raises(TypeError):
+        tg.gather2d_hwc(img, q, q.long())
+
+
+def _hwc_image(rng, H, W, C, dtype):
+    if dtype == np.bool_:
+        return rng.uniform(size=(H, W, C)) < 0.3
+    if dtype == np.uint8:
+        return rng.integers(0, 256, (H, W, C)).astype(np.uint8)
+    return _image(rng, C, H, W, "f32" if dtype == np.float32 else "i32"
+                  ).transpose(1, 2, 0).copy()
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int32, np.uint8, np.bool_])
+@pytest.mark.parametrize("C", [1, 2, 3, 4, 6, 16])
+def test_gather2d_hwc_ref_matches_jax(C, dtype):
+    """The channel-last plain version equals JAX ``gather_map`` on an
+    (H, W, C) array, bit for bit, indices out of range included."""
+    import jax.numpy as jnp
+    from dpe_mvs_tpu.ops import sampling
+    rng = np.random.default_rng(C * 31 + np.dtype(dtype).itemsize)
+    H, W = 19, 27
+    img = _hwc_image(rng, H, W, C, dtype)
+    iy = rng.integers(-3, H + 3, (5, 11)).astype(np.int32)
+    ix = rng.integers(-3, W + 3, (5, 11)).astype(np.int32)
+    ours = tg.gather2d_hwc(torch.from_numpy(img), torch.from_numpy(iy),
+                           torch.from_numpy(ix))
+    ref = np.asarray(sampling.gather_map(jnp.asarray(img), jnp.asarray(iy),
+                                         jnp.asarray(ix)))
+    assert ours.shape == (5, 11, C) and ours.dtype == torch.from_numpy(
+        img).dtype
+    np.testing.assert_array_equal(_words(ours.numpy()), _words(ref))
+
+
+@pytest.mark.parametrize("kind", ["f32", "i32", "u32"])
+@pytest.mark.parametrize("shape", [(16, 13, 21, (4, 5, 6)), (3, 7, 9, (37,)),
+                                   (1, 4, 5, (2, 3))])
+def test_gather2d_pick_ref_matches_jax(shape, kind):
+    """One channel per query equals JAX ``pick_last`` of the channel-last
+    ``gather_map`` of every channel (the line-of-sight lookup)."""
+    import jax.numpy as jnp
+    from dpe_mvs_tpu.ops import sampling
+    C, H, W, S = shape
+    rng = np.random.default_rng(C + H)
+    imgs = _image(rng, C, H, W, kind)
+    ic = rng.integers(0, C, S).astype(np.int64)
+    iy = rng.integers(-3, H + 3, S).astype(np.int32)
+    ix = rng.integers(-3, W + 3, S).astype(np.int32)
+    ours = tg.gather2d_pick(_to_torch(imgs), *(torch.from_numpy(a)
+                                                for a in (ic, iy, ix)))
+    chan = jnp.moveaxis(jnp.asarray(imgs), 0, -1)
+    ref = sampling.pick_last(
+        sampling.gather_map(chan, jnp.asarray(iy), jnp.asarray(ix)),
+        jnp.asarray(ic))
+    assert ours.shape == S
+    np.testing.assert_array_equal(_words(ours.view(torch.int32).numpy()),
+                                  _words(ref))
+
+
+def test_gather2d_pick_ref_clamps_the_channel():
+    rng = np.random.default_rng(3)
+    imgs = torch.from_numpy(_image(rng, 5, 6, 7, "f32"))
+    iy = torch.tensor([0, 7, -1, 2], dtype=torch.int32)
+    ix = torch.tensor([3, 2, 8, -5], dtype=torch.int32)
+    want = torch.stack([imgs[0, 0, 3], imgs[0, 5, 2], imgs[4, 0, 6],
+                        imgs[4, 2, 0]])
+    for ic in ([-4, 0, 4, 9], [-2**40, 0, 4, 2**40]):
+        assert torch.equal(tg.gather2d_pick(
+            imgs, torch.tensor(ic, dtype=torch.int64), iy, ix), want)
+
+
+def test_gather2d_hwc_ref_reads_strided_views():
+    """Slices of a channel-last array (``plane[..., :3]``,
+    ``plane[..., 3]``) gather as their copies do."""
+    rng = np.random.default_rng(8)
+    plane = torch.from_numpy(rng.standard_normal((9, 14, 4)).astype(
+        np.float32))
+    iy = torch.from_numpy(rng.integers(-2, 11, (6, 5)).astype(np.int32))
+    ix = torch.from_numpy(rng.integers(-2, 16, (6, 5)).astype(np.int32))
+    for view in (plane[..., :3], plane[..., 3:], plane[:, 1:12]):
+        assert torch.equal(tg.gather2d_hwc(view, iy, ix),
+                           tg.gather2d_hwc(view.contiguous(), iy, ix))
+    assert torch.equal(tsamp.gather_map(plane[..., 3], iy, ix),
+                       tsamp.gather_map(plane[..., 3].contiguous(), iy, ix))
+
+
+@pytest.mark.parametrize("n,ptrs,want", [
+    (8, (0, 16, 4096), True),
+    (6, (0, 16), False),                      # a row of queries not % 4
+    (8, (0, 20), False),                      # a pointer off 16 bytes
+    (0, (), True),
+])
+def test_index_vec(n, ptrs, want):
+    assert tg.index_vec(n, *ptrs) is want
+
+
+@pytest.mark.parametrize("row,img,s_h,s_w,out,unit", [
+    (16, 0, 16 * 20, 16, 0, 16),              # C = 4 words
+    (8, 0, 8 * 20, 8, 256, 8),                # C = 2 words
+    (12, 0, 12 * 20, 12, 0, 4),               # C = 3 words
+    (12, 0, 16 * 20, 16, 0, 4),               # plane[..., :3]
+    (4, 12, 16 * 20, 16, 0, 4),               # plane[..., 3]
+    (24, 0, 24 * 7, 24, 0, 8),                # C = 6 words
+    (64, 0, 64 * 3, 64, 0, 16),               # C = 16 words
+    (64, 4, 64 * 3, 64, 0, 4),                # image at a 4-byte offset
+    (1, 0, 37, 1, 0, 1),                      # a bool map
+    (2, 0, 2 * 37, 2, 0, 2),                  # C = 2 bytes
+    (4, 0, 4 * 37, 4, 3, 1),                  # output at an odd address
+    (16, 0, 0, 0, 0, 16),                     # H = W = 1 (no strides)
+])
+def test_hwc_plan_vector_width(row, img, s_h, s_w, out, unit):
+    p = tg.hwc_plan(row, img, s_h, s_w, out, 8, 0, 0)
+    assert (p.unit, p.upq, p.vec) == (unit, row // unit, True)
+    assert not tg.hwc_plan(row, img, s_h, s_w, out, 10, 0, 0).vec
+
+
+def test_tile_plan():
+    p = tg.tile_plan(9600, 1600, 0, 0)
+    assert p.vec and (p.tiles_x, p.tiles) == (13, 600 * 13)
+    p = tg.tile_plan(4800, 800, 0, 16)
+    assert p.vec and (p.tiles_x, p.tiles) == (7, 300 * 7)
+    p = tg.tile_plan(5, 33, 0, 0)
+    assert not p.vec and (p.tiles_x, p.tiles) == (1, 1)
+    assert not tg.tile_plan(4, 32, 8, 0).vec                 # iy off 16 B
+    assert not tg.tile_plan(4, 32, 0, 4).vec                 # ix off 16 B
+    assert tg.tile_plan(17, 129, 0, 0).tiles == 2 * 2
+    with pytest.raises(ValueError):
+        tg.tile_plan(2 ** 31 * 16, 128, 0, 0)
 
 
 def test_cpu_path_launches_nothing():
     tg.reset_launches()
-    tsamp.gather_map(torch.zeros(6, 7, 3), torch.zeros(4, 5, dtype=torch.int32),
-                     torch.ones(4, 5, dtype=torch.int32))
-    assert tg.LAUNCHES == {"gather2d": 0}
+    q = torch.zeros(4, 5, dtype=torch.int32)
+    tsamp.gather_map(torch.zeros(6, 7, 3), q, q + 1)
+    tg.gather2d(torch.zeros(2, 6, 7), q, q)
+    tg.gather2d_pick(torch.zeros(2, 6, 7), q.long(), q, q)
+    assert tg.LAUNCHES == {"gather2d": 0, "gather2d_hwc": 0,
+                           "gather2d_pick": 0}
 
 
 # --------------------------------------------------------------------------
@@ -227,6 +376,135 @@ def test_gpu_gather2d_bit_exact(C, H, W, Qh, Qw, kind, clustered, squeeze):
     assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
 
 
+# The channel-first tiles: clustered and scattered queries, W % 4 != 0,
+# scalar index I/O (Qw % 4 != 0), C in {1, 9, 17} (an odd C ends on one
+# channel of a pair), row 4 of the TPU kernel table (a channel > 6 MB) and
+# the anchor-profile shape of the 800x600 main path.
+BRANCH_CASES = [
+    # (C, H, W, Qh, Qw, clustered)
+    (1, 200, 256, 64, 256, True),
+    (9, 100, 132, 45, 260, True),
+    (17, 70, 33, 129, 257, True),
+    (9, 300, 400, 40, 384, False),
+    (9, 960, 1024, 4800, 800, True),
+    (9, 1920, 2048, 9600, 1600, True),
+]
+
+
+def _gpu_queries(rng, H, W, Qh, Qw, clustered):
+    iy, ix = _queries(rng, H, W, Qh, Qw, clustered)
+    return torch.from_numpy(iy).cuda(), torch.from_numpy(ix).cuda()
+
+
+@gpu
+@pytest.mark.parametrize("C,H,W,Qh,Qw,clustered", BRANCH_CASES)
+def test_gpu_gather2d_branches_bit_exact(C, H, W, Qh, Qw, clustered):
+    rng = np.random.default_rng(C * 7 + W)
+    img = _to_torch(_image(rng, C, H, W, "u32")).cuda()
+    iy, ix = _gpu_queries(rng, H, W, Qh, Qw, clustered)
+    out = tg.gather2d(img, iy, ix)
+    ref = tg.gather2d_ref(img, iy, ix)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+def _off4(t):
+    """A contiguous copy of t that starts 4 bytes (8 for 8-byte elements)
+    past a 16-byte boundary."""
+    n = t.numel() * t.element_size()
+    o = max(4, t.element_size())
+    flat = torch.empty(n + 16, dtype=torch.uint8, device=t.device)
+    return flat[o:o + n].view(t.dtype).view(t.shape).copy_(t)
+
+
+@gpu
+def test_gpu_gather2d_misaligned_bit_exact():
+    """Image and indices 4 bytes off 16: scalar index I/O."""
+    rng = np.random.default_rng(12)
+    img = _off4(_to_torch(_image(rng, 5, 64, 128, "f32")).cuda())
+    iy, ix = (_off4(t) for t in _gpu_queries(rng, 64, 128, 33, 128, True))
+    assert img.data_ptr() % 16 == 4 and iy.data_ptr() % 16 == 4
+    out = tg.gather2d(img, iy, ix)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32),
+                       tg.gather2d_ref(img, iy, ix).view(torch.int32))
+
+
+def _hwc_cuda(rng, H, W, C, dtype):
+    return torch.from_numpy(_hwc_image(rng, H, W, C, dtype)).cuda()
+
+
+@gpu
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("dtype", [np.float32, np.int32, np.uint8, np.bool_])
+@pytest.mark.parametrize("C", [1, 2, 3, 4, 6, 16])
+def test_gpu_gather2d_hwc_bit_exact(C, dtype, offset):
+    rng = np.random.default_rng(C * 5 + np.dtype(dtype).itemsize)
+    H, W = 131, 77
+    img = _hwc_cuda(rng, H, W, C, dtype)
+    iy, ix = _gpu_queries(rng, H, W, 37, 203, False)
+    if offset:
+        img, iy, ix = _off4(img), _off4(iy), _off4(ix)
+    tg.reset_launches()
+    out = tg.gather2d_hwc(img, iy, ix)
+    torch.cuda.synchronize()
+    assert tg.LAUNCHES["gather2d_hwc"] == 1
+    ref = tg.gather2d_hwc_ref(img, iy, ix)
+    assert out.shape == (37, 203, C) and out.dtype == img.dtype
+    assert torch.equal(out.view(torch.uint8), ref.view(torch.uint8))
+
+
+@gpu
+def test_gpu_gather2d_hwc_views_bit_exact():
+    """Strided views read in place (plane[..., :3], plane[..., 3]), int64 and
+    float16 elements, the main path's 480k queries, an index row of 4."""
+    rng = np.random.default_rng(21)
+    plane = torch.from_numpy(rng.standard_normal((600, 800, 4)).astype(
+        np.float32)).cuda()
+    iy, ix = _gpu_queries(rng, 600, 800, 600, 800, True)
+    cases = [plane[..., :3], plane[..., 3:], plane[:, 3:700],
+             plane.to(torch.int64), plane[..., :2].to(torch.float16)]
+    for img in cases:
+        out = tg.gather2d_hwc(img, iy, ix)
+        torch.cuda.synchronize()
+        assert torch.equal(out, tg.gather2d_hwc_ref(img, iy, ix))
+    edge = plane[..., 0] > 0.5
+    q = (iy[:1, :4].contiguous(), ix[:1, :4].contiguous())
+    for args in [(edge, iy, ix), (edge, *q)]:
+        out = tsamp.gather_map(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(out, tg.gather2d_hwc_ref(args[0][..., None],
+                                                    *args[1:])[..., 0])
+
+
+@gpu
+@pytest.mark.parametrize("C,H,W,S", [
+    (16, 300, 400, (600, 800)),
+    (16, 30, 41, (8, 6, 9)),
+    (3, 17, 29, (1001,)),
+    (1, 5, 5, (3,)),
+])
+def test_gpu_gather2d_pick_bit_exact(C, H, W, S):
+    """One channel per query, channels and positions out of range (channels
+    beyond 32 bits) included, word and vector index I/O."""
+    rng = np.random.default_rng(C + W)
+    imgs = _to_torch(_image(rng, C, H, W, "u32")).cuda()
+    ic = rng.integers(-2, C + 2, S).astype(np.int64)
+    ic.reshape(-1)[::7] = 2**40
+    ic.reshape(-1)[3::7] = -2**40
+    ic = torch.from_numpy(ic).cuda()
+    iy = torch.from_numpy(rng.integers(-3, H + 3, S).astype(np.int32)).cuda()
+    ix = torch.from_numpy(rng.integers(-3, W + 3, S).astype(np.int32)).cuda()
+    for args in [(ic, iy, ix), tuple(_off4(t) for t in (ic, iy, ix))]:
+        tg.reset_launches()
+        out = tg.gather2d_pick(imgs, *args)
+        torch.cuda.synchronize()
+        assert tg.LAUNCHES["gather2d_pick"] == 1
+        assert torch.equal(out.view(torch.int32),
+                           tg.gather2d_pick_ref(imgs, *args).view(
+                               torch.int32))
+
+
 @gpu
 def test_gpu_wrapper_rejects_bad_input():
     img = torch.zeros(2, 4, 8, device="cuda")
@@ -235,7 +513,34 @@ def test_gpu_wrapper_rejects_bad_input():
         tg.gather2d(img, q[:, ::2], q[:, ::2])
     with pytest.raises(ValueError):           # devices differ
         tg.gather2d(img, q.cpu(), q)
+    with pytest.raises(ValueError):           # channels not contiguous
+        tg.gather2d_hwc(img.permute(1, 2, 0), q, q)
+    with pytest.raises(ValueError):
+        tg.gather2d_pick(img.permute(0, 2, 1), q.long(), q, q)
     tg.reset_launches()
     tsamp.gather_map(img.permute(1, 2, 0), q, q)
     tg.gather2d(img, q, q)
-    assert tg.LAUNCHES == {"gather2d": 2}
+    tg.gather2d_pick(img, q.long(), q, q)
+    assert tg.LAUNCHES == {"gather2d": 1, "gather2d_hwc": 1,
+                           "gather2d_pick": 1}
+
+
+@gpu
+@pytest.mark.parametrize("dtype", [np.float32, np.uint8])
+def test_gpu_gather_map_permuted_channels_bit_exact(dtype):
+    """gather_map of views whose channels are not contiguous (a channel-first
+    array moved last, every other channel) equals the plain gather of their
+    contiguous copies, bit for bit."""
+    rng = np.random.default_rng(np.dtype(dtype).itemsize)
+    chw = torch.from_numpy(_hwc_image(rng, 5, 97, 61, dtype)).cuda()
+    hw32 = torch.from_numpy(_hwc_image(rng, 97, 61, 6, dtype)).cuda()
+    iy, ix = _gpu_queries(rng, 97, 61, 23, 41, False)
+    for view in (chw.permute(1, 2, 0), hw32[..., ::2]):
+        assert view.stride(-1) != 1
+        tg.reset_launches()
+        out = tsamp.gather_map(view, iy, ix)
+        torch.cuda.synchronize()
+        assert tg.LAUNCHES["gather2d_hwc"] == 1
+        flat = view.contiguous().reshape(97, 61, -1)
+        ref = tg.gather2d_hwc_ref(flat, iy, ix).reshape(out.shape)
+        assert torch.equal(out.view(torch.uint8), ref.view(torch.uint8))
