@@ -3,11 +3,13 @@
     python3 chip_smoke.py
 
 An 800x600 scene with 6 views (5 source views per problem), rendered in
-memory from a seed, through ``dpe_mvs_tpu_torch.pipeline.schedule
-.process_problem``: round-0 pass A for all 6 problems, then the modal pass B
-(``schedule_params(base, 1, 0)``: REFINE_ITER, weak machinery, edges and
-geometric consistency) for all 6, reading each problem's priors and its
-sources' depths back from the pass-A writeback. Phases:
+memory from a seed, first through single sweeps of
+``dpe_mvs_tpu_torch.pipeline.schedule.process_problem``: round-0 pass A for
+all 6 problems, then the modal pass B (``schedule_params(base, 1, 0)``:
+REFINE_ITER, weak machinery, edges and geometric consistency) for all 6,
+reading each problem's priors and its sources' depths back from the pass-A
+writeback; then written to a dense folder and run through the whole
+pipeline by the CLI, as a user runs it. Phases:
 
   1. the card's name and power limit (nvidia-smi);
   2. build the kernels from ``dpe_mvs_tpu_torch/csrc`` (one nvcc per source,
@@ -34,7 +36,9 @@ sources' depths back from the pass-A writeback. Phases:
      ``utils.synthetic.support_maps``), counters set to 0 just before and
      read just after; every kernel must have launched; the weak share
      before pass B must be > 0; problem 0 must meet the same bar and be no
-     worse than its pass-A error + 0.003;
+     worse than its pass-A error + 0.003. (Each sweep of phases 5-8 builds
+     its rect host anew, as it did before the pipeline cached them per
+     round);
   8. each kernel against its plain version again, bit-exact, on the inputs
      captured from the pass-A and pass-B runs. At each run's dominant shape
      the kernel (row_gather and bilinear_x: both variants, unstaged and
@@ -54,11 +58,30 @@ sources' depths back from the pass-A writeback. Phases:
      the routes gather_map and the line-of-sight test took before them
      (old_gather_map, old_free_at). Then launches per sweep, and the warm
      time of one more pass-B sweep with a synchronised per-stage breakdown
-     and the peak device memory.
+     and the peak device memory;
+  9. the pipeline: the scene written to a dense folder
+     (``utils.synthetic.write_scene_folder``, PNG bytes) and run in-process
+     by ``dpe_mvs_tpu_torch.cli.main([folder, "0", "1", "0", "0", "1", "1",
+     "1", "1"])`` (card 0, verbose, no viz, no fusion, all four exports):
+     the schedule's 2 rounds (400x300, then 800x600), 8 iterations of 6
+     sweeps, with the dual-level edge and label maps of ``edges/
+     dual_level``. Counters set to 0 just before and read just after; all
+     five kernel entries must have launched; problem 0's ``depth.npy`` must
+     meet the bar of phase 6; every problem's four exports must exist with
+     the JAX package's dtypes and shapes; the intermediate files must be
+     gone; neither cv2 nor jax may be loaded; each kernel must be bit-exact
+     against its plain version at every shape the run gave it (the first
+     inputs of each shape captured as in phases 5 and 7). Prints seconds per
+     iteration, the per-stage summary (``utils.profiling.GLOBAL_TIMER``,
+     spans timed by CUDA events), edge-extraction seconds per scale, problem
+     0's edge and label shares per scale, launches per kernel entry per
+     round, the peak device memory (captured inputs included, their bytes
+     beside it) and every problem's depth error.
 
 Exits non-zero, without the result lines, when there is no CUDA device or
-any phase fails. The line before the last holds the kernel records as JSON;
-the last line is ``{"ok": true, "device": {...}}``.
+any phase fails. The line before the last holds the kernel records as JSON
+(``launches``: the pipeline's; ``launches_by_path``: every path's); the last
+line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -319,6 +342,127 @@ def old_free_at(free_dist, bins, iy, ix):
     return sampling.pick_last(f16, bins)
 
 
+def pipeline_phase(sc, folder: Path, launches, reset, modules) -> dict:
+    """Phase 9: the scene ``sc`` written to the dense folder ``folder`` and
+    run through the CLI in-process, with every check and print of the
+    module docstring but the kernels' (the caller's, on what this returns).
+    ``launches`` / ``reset`` read and zero the kernel counters; ``modules``
+    maps each kernel entry to its module, for :class:`Capture`. Returns
+    {"all": launches of the run, "rounds": [launches per round], "seen":
+    the captured inputs per entry}."""
+    import numpy as np
+    import torch
+    from dpe_mvs_tpu_torch import cli
+    from dpe_mvs_tpu_torch.io import formats
+    from dpe_mvs_tpu_torch.pipeline import schedule as sch
+    from dpe_mvs_tpu_torch.utils.profiling import GLOBAL_TIMER
+    from dpe_mvs_tpu_torch.utils.synthetic import write_scene_folder
+
+    phase("9. the pipeline through the CLI")
+    t0 = time.time()
+    write_scene_folder(sc, folder)
+    print(f"dense folder written in {time.time() - t0:.1f} s")
+
+    # Wrappers around the schedule's own calls: per-sweep time and launches,
+    # and problem 0's maps as each scale's are written.
+    per_iter, per_scale, shares = {}, {}, {}
+    sweep_fn, edges_fn = sch.process_problem, sch.get_problem_edges
+
+    def sweep(problem, params, scale_size, *args, **kw):
+        before, ts = launches(), time.time()
+        out = sweep_fn(problem, params, scale_size, *args, **kw)
+        torch.cuda.synchronize()
+        per_iter[problem.iteration] = per_iter.get(problem.iteration, 0.0) \
+            + time.time() - ts
+        n = per_scale.setdefault(scale_size, dict.fromkeys(before, 0))
+        for k, v in launches().items():
+            n[k] += v - before[k]
+        return out
+
+    def edges(problem, scale_size, params):
+        edges_fn(problem, scale_size, params)
+        if problem.ref_image_id == 0:
+            s = sch.scale_index(scale_size)
+            e = formats.read_dmb(problem.result_folder / f"edges_{s}.dmb")
+            lab = formats.read_dmb(problem.result_folder / f"labels_{s}.dmb")
+            shares[s] = (e.shape, float((e > 0).mean()),
+                         float((lab > 0).mean()), float((lab < 0).mean()),
+                         int(lab.max()))
+
+    argv = [str(folder), "0", "1", "0", "0", "1", "1", "1", "1"]
+    sch.process_problem, sch.get_problem_edges = sweep, edges
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with Capture(modules) as cap:
+            reset()
+            t0 = time.time()
+            rc = cli.main(argv)
+            torch.cuda.synchronize()
+            run_s = time.time() - t0
+            counts = launches()
+    finally:
+        sch.process_problem, sch.get_problem_edges = sweep_fn, edges_fn
+    peak = torch.cuda.max_memory_allocated()
+    held = sum(a.untyped_storage().nbytes() for seen in cap.seen.values()
+               for _, args in seen.values() for a in args)
+    if rc != 0:
+        fail(f"cli.main returned {rc}")
+    print(f"pipeline: {run_s:.2f} s in all; peak device memory "
+          f"{peak / 2**20:.1f} MiB, of which the captured kernel inputs "
+          f"hold {held / 2**20:.1f} MiB; launches {counts}")
+    for name, n in counts.items():
+        if n <= 0:
+            fail(f"kernel {name} was not launched by the pipeline")
+    print("seconds per iteration (sweeps, synchronised): " + ", ".join(
+        f"{it} {t:.2f}" for it, t in sorted(per_iter.items())))
+    if sorted(per_iter) != list(range(8)):
+        fail(f"expected iterations 0-7, ran {sorted(per_iter)}")
+    print("per-stage time (GLOBAL_TIMER, CUDA events):\n"
+          + GLOBAL_TIMER.summary())
+    print("edge extraction, all problems: " + ", ".join(
+        f"scale {s} {GLOBAL_TIMER.totals[f'edges, scale {s}']:.3f} s"
+        for s in sorted(shares)))
+    for s, (shape, e, pos, small, n_reg) in sorted(shares.items()):
+        print(f"problem 0, scale {s} ({shape[1]}x{shape[0]}): edge share "
+              f"{e:.4f}, labelled (> 0) {pos:.4f}, small regions (-1) "
+              f"{small:.4f}, {n_reg} regions")
+    rounds = [per_scale[k] for k in sorted(per_scale, reverse=True)]
+    for i, n in enumerate(rounds):
+        print(f"launches, round {i}: {n}")
+
+    res = [folder / "DPE" / f"{v:08d}" for v in range(len(sc.images))]
+    want = {"depth.npy": (np.float32, (H, W)),
+            "normal.npy": (np.float32, (H, W, 3)),
+            "weak.npy": (np.int8, (H, W)), "edge.npy": (np.int8, (H, W))}
+    for v, rf in enumerate(res):
+        for name, (dt, shape) in want.items():
+            if not (rf / name).is_file():
+                fail(f"problem {v}: {name} missing")
+            a = np.load(rf / name)
+            if a.dtype != dt or a.shape != shape:
+                fail(f"problem {v}: {name} is {a.dtype} {a.shape}")
+        d = np.load(rf / "depth.npy")
+        gt = sc.gt_depths[v]
+        ok = d > 0
+        med = float(np.median(np.abs(d[ok] - gt[ok]) / gt[ok])) \
+            if ok.any() else float("inf")
+        print(f"problem {v}: median rel depth error {med:.5f}, valid "
+              f"{float(ok.mean()):.4f}")
+        if v == 0 and not (med < 0.02 and ok.mean() > 0.5):
+            fail("problem 0 misses the bar after the pipeline (median < "
+                 "2%, valid > 50%)")
+        left = sorted(p.name for p in rf.iterdir()
+                      if p.suffix in (".dmb", ".bin"))
+        if left:
+            fail(f"problem {v}: intermediates left: {left}")
+    if (folder / "DPE" / "progress.json").exists():
+        fail("progress.json left")
+    if any(m.split(".")[0] in ("jax", "cv2") for m in sys.modules):
+        fail("the pipeline loaded jax or cv2")
+    return {"all": counts, "rounds": rounds, "seen": cap.seen}
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -340,7 +484,7 @@ def main() -> None:
     from dpe_mvs_tpu_torch.config import EngineConfig, PatchMatchParams, \
         schedule_params
     from dpe_mvs_tpu_torch.engine import rectcost
-    from dpe_mvs_tpu_torch.io import formats
+    from dpe_mvs_tpu_torch.io import formats, scene
     from dpe_mvs_tpu_torch.ops import cudalib
     from dpe_mvs_tpu_torch.ops import gather2d as g2d
     from dpe_mvs_tpu_torch.ops import rowgather as rg
@@ -564,8 +708,9 @@ def main() -> None:
     cfg = EngineConfig(seed=SEED)
     v_pad = VIEWS - 1
     out_dir = Path(tempfile.mkdtemp(prefix="dpe_smoke_"))
-    problems = [sch.Problem(result_folder=out_dir / f"{i:08d}",
-                            ref_image_id=i) for i in range(VIEWS)]
+    problems = [scene.Problem(index=i, ref_image_id=i,
+                              src_image_ids=sc.src_ids(i),
+                              dense_folder=out_dir) for i in range(VIEWS)]
 
     def folders(p):
         ids = [p.ref_image_id] + sc.src_ids(p.ref_image_id)
@@ -592,6 +737,7 @@ def main() -> None:
         and returns the launches."""
         before = launches()
         tp = time.time()
+        sch._RECT_HOSTS.clear()
         sch.process_problem(p, params, 1, 1, v_pad, cfg, device=device, **kw)
         torch.cuda.synchronize()
         n = {k: v - before[k] for k, v in launches().items()}
@@ -628,9 +774,9 @@ def main() -> None:
     phase("7. pass B, all problems")
 
     def pass_b_inputs(p):
-        inp = sch.add_pass_inputs(sc.problem_inputs(p.ref_image_id),
-                                  p.result_folder, folders(p),
-                                  **sch.pass_needs(params_b))
+        inp = scene.add_pass_inputs(sc.problem_inputs(p.ref_image_id),
+                                    p.result_folder, folders(p),
+                                    **sch.pass_needs(params_b))
         return inp, support_maps(inp.images[0])
 
     reset()
@@ -854,6 +1000,7 @@ def main() -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
+    sch._RECT_HOSTS.clear()
     sch.process_problem(p0, params_b, 1, 1, v_pad, cfg, device=device,
                         inputs=inp0, support_maps=maps0)
     torch.cuda.synchronize()
@@ -873,17 +1020,33 @@ def main() -> None:
         spans[name] = spans.get(name, 0.0) + time.time() - ts
 
     inp0, maps0 = pass_b_inputs(p0)
+    sch._RECT_HOSTS.clear()
     sch.process_problem(p0, params_b, 1, 1, v_pad, cfg, device=device,
                         inputs=inp0, support_maps=maps0, timer=timer)
     print("pass-B stages (s, synchronised): " +
           ", ".join(f"{k} {v:.3f}" for k, v in spans.items()))
+
+    launches_p = pipeline_phase(sc, out_dir / "scene", launches, reset,
+                                modules)
+    for name in modules:
+        check(name, launches_p["seen"][name], "pipeline")
+        print(f"{name}, pipeline: {len(launches_p['seen'][name])} shapes "
+              f"bit-exact")
+    del launches_p["seen"]
+    for rec in kernels:
+        name = rec["name"]
+        rec["launches"] = launches_p["all"][name]
+        rec["launches_by_path"] = {
+            "pass A": launches_a[name], "pass B": launches_b[name],
+            "pipeline": launches_p["all"][name],
+            **{f"pipeline round {i}": n[name]
+               for i, n in enumerate(launches_p["rounds"])}}
     print(f"script time {time.time() - t_start:.1f} s")
 
     shutil.rmtree(out_dir, ignore_errors=True)
-    if "jax" in sys.modules or any(m.startswith("dpe_mvs_tpu.")
-                                   or m == "dpe_mvs_tpu"
-                                   for m in sys.modules):
-        fail("the port imported jax or the JAX package")
+    if any(m.split(".")[0] in ("jax", "cv2", "dpe_mvs_tpu")
+           for m in sys.modules):
+        fail("the port imported jax, cv2 or the JAX package")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

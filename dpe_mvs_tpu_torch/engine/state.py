@@ -44,6 +44,17 @@ class CameraData:
     width: int = 0
     height: int = 0
 
+    def scaled(self, scale_x: float, scale_y: float,
+               width: int, height: int) -> "CameraData":
+        """The camera of the image resized by (scale_x, scale_y) to
+        (width, height)."""
+        K = self.K.copy()
+        K[0, 0] *= scale_x
+        K[0, 2] *= scale_x
+        K[1, 1] *= scale_y
+        K[1, 2] *= scale_y
+        return dataclasses.replace(self, K=K, width=width, height=height)
+
 
 @dataclasses.dataclass
 class ProblemInputs:

@@ -1,14 +1,22 @@
-"""The ``.dmb`` mat container, bit-compatible with the reference tool chain.
+"""Binary and text scene formats, bit-compatible with the reference tool
+chain.
 
-The port's own copy of the ``.dmb`` reader and writer of
-:mod:`dpe_mvs_tpu.io.formats` (``ReadBinMat``/``WriteBinMat``,
-DPE.cpp:293-339): a little-endian header {version=1, rows, cols, cvtype}
-followed by the raw data. Pure numpy.
+The port's own copy of :mod:`dpe_mvs_tpu.io.formats`:
+  - the ``.dmb`` mat container (``ReadBinMat``/``WriteBinMat``,
+    DPE.cpp:293-339): a little-endian header {version=1, rows, cols, cvtype}
+    followed by the raw data;
+  - ``*_cam.txt`` camera files (``ReadCamera``, DPE.cpp:341-382);
+  - ``pair.txt`` view-selection lists (``GenerateSampleList``,
+    main.cpp:264-308);
+  - the ``<dense>/DPE/<%08d>`` result folder of a view.
+Pure numpy. The point-cloud ``.ply`` reader and writer arrive with fusion.
 """
 from __future__ import annotations
 
 import os
 import struct
+from pathlib import Path
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -47,6 +55,99 @@ def write_dmb(path: os.PathLike, arr: np.ndarray) -> None:
     else:
         raise ValueError(f"dmb arrays must be 2D/3D, got shape {arr.shape}")
     depth = _DTYPE_TO_CV_DEPTH[arr.dtype]
-    with open(path, "wb") as f:
+    # Written aside and renamed into place, so that a reader (the
+    # pipeline's prefetch thread) sees the old file or the new one whole.
+    tmp = Path(f"{os.fspath(path)}.tmp")
+    with open(tmp, "wb") as f:
         f.write(struct.pack("<iiii", 1, rows, cols, cv_type(depth, channels)))
         arr.tofile(f)
+    os.replace(tmp, path)
+
+
+def read_cam_txt(path: os.PathLike) -> Tuple[np.ndarray, np.ndarray,
+                                             np.ndarray, float, float]:
+    """Parse a ``%08d_cam.txt``: extrinsic 4x4, intrinsic 3x3 and the depth
+    line ``depth_min interval depth_num depth_max`` (ETH/TnT) or
+    ``depth_min interval`` (DTU). Returns (K, R, t, depth_min, depth_max);
+    raises ValueError on a malformed file."""
+    tokens: List[str] = []
+    with open(path, "r") as f:
+        for line in f:
+            tokens.extend(line.split())
+    it = iter(tokens)
+
+    def expect(word):
+        w = next(it)
+        if w != word:
+            raise ValueError(f"expected '{word}' in {path}, got '{w}'")
+
+    expect("extrinsic")
+    ext = np.array([float(next(it)) for _ in range(16)],
+                   np.float32).reshape(4, 4)
+    expect("intrinsic")
+    K = np.array([float(next(it)) for _ in range(9)],
+                 np.float32).reshape(3, 3)
+    depth_min = float(next(it))
+    interval = float(next(it))
+    rest = [float(x) for x in it]
+    # ETH/TnT files carry "min interval num max"; DTU files "min interval"
+    # (DPE.cpp:369-379).
+    if len(rest) >= 2:
+        depth_max = rest[1]
+    elif len(rest) == 1:
+        depth_max = rest[0]
+    else:
+        depth_max = depth_min + interval * 192.0
+    return K, ext[:3, :3].copy(), ext[:3, 3].copy(), depth_min, depth_max
+
+
+def write_cam_txt(path: os.PathLike, K: np.ndarray, R: np.ndarray,
+                  t: np.ndarray, depth_min: float, interval: float,
+                  depth_num: float, depth_max: float) -> None:
+    """Write a camera file in the layout of the reference converter
+    (colmap2mvsnet.py:454-466)."""
+    ext = np.eye(4, dtype=np.float64)
+    ext[:3, :3] = R
+    ext[:3, 3] = t
+    with open(path, "w") as f:
+        f.write("extrinsic\n")
+        for row in ext:
+            f.write(" ".join(f"{v}" for v in row) + "\n")
+        f.write("\nintrinsic\n")
+        for row in np.asarray(K):
+            f.write(" ".join(f"{v}" for v in row) + "\n")
+        f.write(f"\n{depth_min} {interval} {depth_num} {depth_max}\n")
+
+
+def read_pair_txt(path: os.PathLike
+                  ) -> List[Tuple[int, List[Tuple[int, float]]]]:
+    """Parse ``pair.txt``: the count, then per image a "ref_id" line and an
+    "n src_id score ..." line."""
+    with open(path, "r") as f:
+        lines = [ln.strip() for ln in f if ln.strip()]
+    n = int(lines[0].split()[0])
+    out = []
+    idx = 1
+    for _ in range(n):
+        ref_id = int(lines[idx].split()[0])
+        parts = lines[idx + 1].split()
+        srcs = [(int(parts[1 + 2 * j]), float(parts[2 + 2 * j]))
+                for j in range(int(parts[0]))]
+        out.append((ref_id, srcs))
+        idx += 2
+    return out
+
+
+def write_pair_txt(path: os.PathLike,
+                   pairs: Sequence[Tuple[int, Sequence[Tuple[int, float]]]]
+                   ) -> None:
+    with open(path, "w") as f:
+        f.write(f"{len(pairs)}\n")
+        for ref_id, srcs in pairs:
+            f.write(f"{ref_id}\n{len(srcs)} ")
+            f.write(" ".join(f"{i} {s}" for i, s in srcs) + "\n")
+
+
+def result_folder(dense_folder: os.PathLike, image_id: int) -> Path:
+    """``<dense>/DPE/<%08d>`` per-view output folder (main.cpp:289)."""
+    return Path(dense_folder) / "DPE" / f"{image_id:08d}"

@@ -1,45 +1,45 @@
-"""One sweep over one problem, with writeback.
+"""The coarse-to-fine pipeline (``RunDPEPipeline``, main.cpp:474-600).
 
-Port of :func:`dpe_mvs_tpu.pipeline.schedule.process_problem` on the
-rectified engine, for every pass of the schedule: round-0 pass A, pass A of
-later rounds (REFINE_INIT, weak machinery and edges) and pass B (REFINE_ITER
-with geometric consistency). As in the reference, the sweep's results go to
-``<result_folder>/`` as ``depths.dmb``, ``normals.dmb``, ``weak.bin`` and
-``selected_views.bin`` (readable by the JAX package's ``export_npy``), and a
-later pass reads its priors and its source views' depths back from there
-(:func:`add_pass_inputs`).
+Port of :mod:`dpe_mvs_tpu.pipeline.schedule` on the rectified engine.
+Schedule per resolution round i (scale = 2^(rounds-1-i)):
+  pass A - photometric: FIRST_INIT (round 0) or REFINE_INIT;
+  pass B - 3x geometric-consistency REFINE_ITER sweeps.
 
-The problem argument is duck-typed: it needs ``result_folder``,
-``ref_image_id`` and ``iteration``. Inputs and support maps are supplied in
-memory: loading a dense folder (images through OpenCV, the edge and label
-maps of ``edges/dual_level``) belongs to the pipeline slice.
+As in the reference, all state between sweeps lives on disk under
+``<dense>/DPE/<%08d>/`` (``depths.dmb``, ``normals.dmb``, ``weak.bin``,
+``selected_views.bin`` and the per-scale ``edges_<s>.dmb`` /
+``labels_<s>.dmb``), in the JAX package's formats, so every sweep is
+resumable. The sweeps run on ``device`` (the card unless the caller asks
+for "cpu"); loading, edge extraction and rectification stay on the host.
 """
 from __future__ import annotations
 
-import dataclasses
+import concurrent.futures as cf
+import functools
+import json
 import time
 from contextlib import nullcontext
 from pathlib import Path
-from typing import Sequence
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from .. import config
 from ..config import EngineConfig, PatchMatchParams, PixelState, RunState
+from ..edges import dual_level
 from ..engine import rectcost
 from ..engine import state as state_mod
-from ..engine.stages import check_engine, run_sweep_staged
-from ..io import formats
+from ..engine.stages import run_sweep_staged
+from ..geometry import rectify
+from ..io import formats, scene
+from ..utils.profiling import GLOBAL_TIMER
 from ..utils.rng import TorchKey
 
-
-@dataclasses.dataclass
-class Problem:
-    """The fields of the JAX package's ``io.scene.Problem`` a sweep needs."""
-
-    result_folder: Path
-    ref_image_id: int
-    iteration: int = 0
+# Host-side rectification data keyed by (scene, view, size, v_pad, frame):
+# the epipolar frames depend only on cameras and image size, so one build
+# serves every pass of a round. Cleared at each round boundary.
+_RECT_HOSTS: Dict = {}
 
 
 def resolve_device(device) -> torch.device:
@@ -51,53 +51,110 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def rescale_nearest(src: np.ndarray, width: int, height: int) -> np.ndarray:
-    """Nearest-neighbour rescale of priors between rounds
-    (``RescaleMatToTargetSize``, DPE.cpp:1146-1168), as the JAX package's
-    ``io.scene.rescale_nearest``."""
-    if src.shape[1] == width and src.shape[0] == height:
-        return src
-    r_idx = np.minimum(
-        (np.arange(height) * (src.shape[0] / height)).astype(np.int64),
-        src.shape[0] - 1)
-    c_idx = np.minimum(
-        (np.arange(width) * (src.shape[1] / width)).astype(np.int64),
-        src.shape[1] - 1)
-    return src[np.ix_(r_idx, c_idx)]
+def pass_needs(params: PatchMatchParams) -> dict:
+    """Which stored inputs a pass reads (the JAX scheduler's flags):
+    priors after round 0's pass A, the weak map with the weak machinery,
+    source depths in geom passes."""
+    return dict(need_prior=params.state != RunState.FIRST_INIT,
+                need_weak=params.use_APD,
+                need_src_depths=params.geom_consistency)
 
 
-def add_pass_inputs(inputs, result_folder, view_folders: Sequence, *,
-                    need_prior: bool, need_weak: bool,
-                    need_src_depths: bool):
-    """The inputs of a later pass, as the JAX package's
-    ``load_problem_inputs`` assembles them (``io/scene.py:201-222``): the
-    prior depth, normal and selected views and the weak map from the
-    problem's own ``result_folder``, and the depth map of every view of the
-    problem (``view_folders``: the result folders of [ref, src...]; zeros
-    where a view has none yet), each rescaled to the inputs' size."""
-    W, H = inputs.width, inputs.height
-    out = dataclasses.replace(inputs)
-    rf = Path(result_folder)
-    if need_prior:
-        out.prior_depth = rescale_nearest(
-            formats.read_dmb(rf / "depths.dmb").astype(np.float32), W, H)
-        out.prior_normal = rescale_nearest(
-            formats.read_dmb(rf / "normals.dmb").astype(np.float32), W, H)
-        out.prior_selected_views = rescale_nearest(
-            formats.read_dmb(rf / "selected_views.bin").astype(np.int32),
-            W, H)
-    if need_weak:
-        out.weak_info = rescale_nearest(
-            formats.read_dmb(rf / "weak.bin").astype(np.uint8), W, H)
-    if need_src_depths:
-        depths = []
-        for folder in view_folders:
-            p = Path(folder) / "depths.dmb"
-            d = (formats.read_dmb(p).astype(np.float32) if p.exists()
-                 else np.zeros((H, W), np.float32))
-            depths.append(rescale_nearest(d, W, H))
-        out.src_depths = np.stack(depths, axis=0)
-    return out
+def scale_index(scale_size: int) -> int:
+    """s with 2**s the first power of two >= scale_size: the index of a
+    round's edge and label maps."""
+    s = 0
+    while (1 << s) < scale_size:
+        s += 1
+    return s
+
+
+def _rect_host(problem, inputs, v_pad: int, rect_frame=None):
+    key = (str(problem.dense_folder), problem.ref_image_id, inputs.width,
+           inputs.height, v_pad, rect_frame)
+    rh = _RECT_HOSTS.get(key)
+    if rh is None:
+        rh = _RECT_HOSTS[key] = rectcost.build_rect_host(
+            inputs.cameras, inputs.width, inputs.height, v_pad,
+            force_size=rect_frame)
+    return rh
+
+
+def round_rect_frame(problems: List[scene.Problem], scale_size: int,
+                     v_pad: int):
+    """Common (wp, hp) rect frame for every problem of a round, from camera
+    algebra alone: the largest frame any (ref, src) pair of any problem
+    needs. It fixes the shapes of every sweep of the round (and so the
+    numbers: a frame is where the costs are evaluated).
+
+    Precondition: every image in the scene shares problems[0]'s size
+    (:func:`scene.check_images`, run first by :func:`run_pipeline`)."""
+    img0 = scene.load_image_gray(problems[0].dense_folder,
+                                 problems[0].ref_image_id)
+    H0, W0 = img0.shape
+    cols, rows = scene.scaled_size(W0, H0, scale_size)
+    sx, sy = cols / W0, rows / H0
+    wp = hp = 0
+    for p in problems:
+        ids = [p.ref_image_id] + list(p.src_image_ids)[:v_pad]
+        cams = [scene.load_camera(p.dense_folder, i).scaled(sx, sy, cols,
+                                                            rows)
+                for i in ids]
+        ref = cams[0]
+        for src in cams[1:]:
+            pair = rectify.build_rect_pair(ref.K, ref.R, ref.t, src.K, src.R,
+                                           src.t, cols, rows, max_scale=1.6)
+            wp, hp = max(wp, pair.width), max(hp, pair.height)
+    return wp, hp
+
+
+def compute_round_num(problems: List[scene.Problem],
+                      cfg: EngineConfig) -> int:
+    img = scene.load_image_gray(problems[0].dense_folder,
+                                problems[0].ref_image_id)
+    return config.compute_round_num(img.shape[1], img.shape[0], cfg)
+
+
+def get_problem_edges(problem: scene.Problem, scale_size: int,
+                      params: PatchMatchParams) -> None:
+    """Compute and cache the scale's edge and label maps
+    (``GetProblemEdges``, main.cpp:331-388): ``edges_<s>.dmb`` (uint8 {0,
+    255}, fine edges of the image resized to the scale) and
+    ``labels_<s>.dmb`` (int32 coarse labels)."""
+    scale = scale_index(scale_size)
+    rf = problem.result_folder
+    img = scene.load_image_gray(problem.dense_folder, problem.ref_image_id)
+    edge_path = rf / f"edges_{scale}.dmb"
+    if not edge_path.exists():
+        cols, rows = scene.scaled_size(img.shape[1], img.shape[0],
+                                       scale_size)
+        scaled = scene.resize_linear(img, cols, rows).astype(np.uint8)
+        formats.write_dmb(edge_path,
+                          dual_level.fine_edges(scaled, params.high_res_img))
+    label_path = rf / f"labels_{scale}.dmb"
+    if not label_path.exists():
+        formats.write_dmb(label_path, dual_level.coarse_labels(
+            img.astype(np.uint8), scale, params.high_res_img))
+
+
+def load_support_maps(problem, scale_size: int, max_scale: int,
+                      params: PatchMatchParams, width: int, height: int):
+    """The round's (edge, edge_low, label) maps from the cache
+    (``SupportInitialization``, DPE.cpp:1025-1052): edges and labels of the
+    round's scale, nearest-rescaled to (height, width) where they differ,
+    and the coarse edge map (the coarsest scale's with ``high_res_img``,
+    else the round's own)."""
+    scale = scale_index(scale_size)
+    rf = problem.result_folder
+    edge = formats.read_dmb(rf / f"edges_{scale}.dmb") > 0
+    low_scale = max_scale if params.high_res_img else scale
+    edge_low = formats.read_dmb(rf / f"edges_{low_scale}.dmb") > 0
+    label = formats.read_dmb(rf / f"labels_{scale}.dmb").astype(np.int32)
+    if edge.shape != (height, width):
+        edge = scene.rescale_nearest(edge, width, height)
+    if label.shape != (height, width):
+        label = scene.rescale_nearest(label, width, height)
+    return edge, edge_low, label
 
 
 def process_problem(problem, params: PatchMatchParams, scale_size: int,
@@ -105,44 +162,44 @@ def process_problem(problem, params: PatchMatchParams, scale_size: int,
                     device="cuda", verbose: bool = False, inputs=None,
                     support_maps=None, rect_frame=None, timer=None):
     """One sweep over one problem (``ProcessProblem``, main.cpp:411-472).
-    Returns the final PMState.
+    Returns the final PMState; the results go to ``problem.result_folder``.
 
-    ``device``: where every tensor of the sweep lives (the card by default,
-    "cpu" on request). ``inputs``: the problem's host inputs
-    (``state.ProblemInputs``; for later passes with priors, weak map and
-    source depths, see :func:`add_pass_inputs`). ``support_maps``: the
-    (edge, edge_low, label) maps of passes with the weak machinery or edges;
-    pass A of round 0 reads none. ``scale_size`` / ``max_scale`` select the
-    round's maps when loading a folder. ``rect_frame``: optional common
+    ``problem``: a ``scene.Problem`` (anything with ``dense_folder``,
+    ``result_folder``, ``ref_image_id`` and ``iteration`` when inputs and
+    maps are given; ``src_image_ids`` too when they are loaded).
+    ``scale_size`` / ``max_scale``: the round's scale and the coarsest
+    round's scale index; they select the images' size and the edge and
+    label maps. ``device``: where every tensor of the sweep lives (the card
+    by default, "cpu" on request). ``inputs``: the problem's host inputs
+    (``scene.ProblemInputs``), loaded from the dense folder when None.
+    ``support_maps``: (edge, edge_low, label) for passes with the weak
+    machinery or edges, read from the problem's cache
+    (:func:`load_support_maps`) when None. ``rect_frame``: optional common
     (wp, hp) rect frame. ``timer``: optional callable ``timer(name)``
     returning a context manager, wrapped around the load, rectify,
     src-depth rectify, writeback and every sweep stage."""
-    if inputs is None:
-        raise NotImplementedError(
-            "loading a problem from its dense folder (images, cameras and "
-            "the edge and label maps) is not ported yet: it arrives with "
-            "slice 3 (the pipeline); pass the inputs in memory")
-    needs_maps = params.use_APD or params.use_edge
-    if needs_maps and support_maps is None:
-        raise ValueError("this pass reads the edge and label maps: pass "
-                         "support_maps=(edge, edge_low, label)")
-    check_engine("rect")
     device = resolve_device(device)
     span = timer if timer is not None else (lambda name: nullcontext())
     t0 = time.time()
     with span("load"):
-        edge, edge_low, label = support_maps if needs_maps else (None,) * 3
-        data = state_mod.build_sweep_data(inputs, v_pad, edge, edge_low,
-                                          label, device=device)
+        if inputs is None:
+            inputs = scene.load_problem_inputs(problem, scale_size,
+                                               **pass_needs(params))
+        if not (params.use_APD or params.use_edge):
+            support_maps = (None,) * 3
+        elif support_maps is None:
+            support_maps = load_support_maps(problem, scale_size, max_scale,
+                                             params, inputs.width,
+                                             inputs.height)
+        data = state_mod.build_sweep_data(inputs, v_pad, *support_maps,
+                                          device=device)
         key = TorchKey(cfg.seed + problem.ref_image_id * 1000
                        + problem.iteration, device)
         st = state_mod.init_pm_state(inputs, v_pad, key, params.use_APD,
                                      device)
 
     with span("rectify"):
-        rh = rectcost.build_rect_host(inputs.cameras, inputs.width,
-                                      inputs.height, v_pad,
-                                      force_size=rect_frame)
+        rh = _rect_host(problem, inputs, v_pad, rect_frame)
         views = rectcost.build_rect_views(rh, inputs.images, device)
     if params.geom_consistency and inputs.src_depths is not None:
         with span("src-depth rectify"):
@@ -175,10 +232,176 @@ def process_problem(problem, params: PatchMatchParams, scale_size: int,
     return st
 
 
-def pass_needs(params: PatchMatchParams) -> dict:
-    """Which stored inputs a pass reads (the JAX scheduler's flags):
-    priors after round 0's pass A, the weak map with the weak machinery,
-    source depths in geom passes."""
-    return dict(need_prior=params.state != RunState.FIRST_INIT,
-                need_weak=params.use_APD,
-                need_src_depths=params.geom_consistency)
+def export_npy(problem: scene.Problem, *, depth: bool, normal: bool,
+               weak: bool, edge: bool) -> None:
+    """Final .npy exports (main.cpp:99-260): ``depth.npy`` (float32, 0
+    where UNKNOWN), ``normal.npy`` (float32 (H, W, 3)), ``weak.npy`` (int8:
+    0 unknown, 1 weak, 2 strong), ``edge.npy`` (int8, the finest scale's
+    edges)."""
+    rf = problem.result_folder
+    if depth:
+        d = formats.read_dmb(rf / "depths.dmb").astype(np.float32)
+        w = formats.read_dmb(rf / "weak.bin")
+        d[w == int(PixelState.UNKNOWN)] = 0.0
+        np.save(rf / "depth.npy", d)
+    if normal:
+        n = formats.read_dmb(rf / "normals.dmb").astype(np.float32)
+        np.save(rf / "normal.npy", n)
+    if weak:
+        w = formats.read_dmb(rf / "weak.bin")
+        enc = np.zeros(w.shape, np.int8)
+        enc[w == int(PixelState.WEAK)] = 1
+        enc[w == int(PixelState.STRONG)] = 2
+        np.save(rf / "weak.npy", enc)
+    if edge:
+        for idx in range(8):
+            p = rf / f"edges_{idx}.dmb"
+            if p.exists():
+                np.save(rf / "edge.npy",
+                        (formats.read_dmb(p) > 0).astype(np.int8))
+                break
+
+
+def cleanup_intermediates(problems: List[scene.Problem],
+                          round_num: int) -> None:
+    """Delete the state files between sweeps (main.cpp:581-595) and the
+    progress record."""
+    if problems:
+        _progress_path(problems[0].dense_folder).unlink(missing_ok=True)
+    for p in problems:
+        rf = p.result_folder
+        for name in ("weak.bin", "depths.dmb", "normals.dmb",
+                     "selected_views.bin"):
+            (rf / name).unlink(missing_ok=True)
+        for j in range(round_num):
+            (rf / f"edges_{j}.dmb").unlink(missing_ok=True)
+            (rf / f"labels_{j}.dmb").unlink(missing_ok=True)
+
+
+def _progress_path(dense_folder: Path) -> Path:
+    return Path(dense_folder) / "DPE" / "progress.json"
+
+
+def _load_progress(dense_folder: Path) -> int:
+    """Last fully completed iteration index, or -1."""
+    p = _progress_path(dense_folder)
+    if not p.exists():
+        return -1
+    try:
+        return int(json.loads(p.read_text()).get("iteration", -1))
+    except (ValueError, TypeError, AttributeError):
+        return -1
+
+
+def _save_progress(dense_folder: Path, iteration: int) -> None:
+    _progress_path(dense_folder).write_text(
+        json.dumps({"iteration": iteration}))
+
+
+def run_pipeline(dense_folder, *, verbose: bool = True, fusion: bool = False,
+                 viz: bool = False, depth: bool = True, normal: bool = False,
+                 weak: bool = False, edge: bool = False,
+                 cfg: Optional[EngineConfig] = None,
+                 keep_intermediates: bool = False, resume: bool = False,
+                 device="cuda") -> int:
+    """Full pipeline (``RunDPEPipeline``, main.cpp:474-600). Returns 0 on
+    success, 1 if the images are missing or differ in size. With
+    ``resume=True``, iterations recorded as complete in
+    ``DPE/progress.json`` are skipped (their state is in the per-view .dmb
+    files). Stage times go to ``utils.profiling.GLOBAL_TIMER``, spans on a
+    card timed by CUDA events (the host is never blocked for them)."""
+    if fusion or viz:
+        raise NotImplementedError(
+            "fusion=True and viz=True are not ported yet: fusion and the "
+            "image writers arrive with slice 4")
+    device = resolve_device(device)
+    cfg = cfg or EngineConfig()
+    dense_folder = Path(dense_folder)
+    (dense_folder / "DPE").mkdir(parents=True, exist_ok=True)
+    span = functools.partial(GLOBAL_TIMER.span, device=device)
+
+    problems = scene.generate_sample_list(dense_folder, viz)
+    if not scene.check_images(problems):
+        print("Images may error, check it!")
+        return 1
+    if verbose:
+        print(f"There are {len(problems)} images to be processed!")
+
+    round_num = compute_round_num(problems, cfg)
+    base = cfg.profile.apply(PatchMatchParams())
+    v_pad = max(max(min(len(p.src_image_ids), cfg.max_images - 1)
+                    for p in problems), 1)
+
+    # Edges and labels for every scale first (main.cpp:494-501).
+    scale_sizes = [2 ** (round_num - 1 - i) for i in range(round_num)]
+    for scale_size in scale_sizes:
+        with span(f"edges, scale {scale_index(scale_size)}"):
+            for p in problems:
+                get_problem_edges(p, scale_size, base)
+    max_scale = scale_index(max(scale_sizes))
+
+    if verbose:
+        print(f"There are {round_num} resolution stages, "
+              f"{round_num * 4} iterations")
+
+    done_iter = _load_progress(dense_folder) if resume else -1
+    iteration = 0
+    for i, scale_size in enumerate(scale_sizes):
+        # One rect frame per round, shared by every problem's sweeps.
+        rect_frame = (round_rect_frame(problems, scale_size, v_pad)
+                      if len(problems) > 1 else None)
+        for j in [None, 0, 1, 2]:
+            params = config.schedule_params(base, i, j)
+            if iteration > done_iter:
+                t_it = time.time()
+                needs = pass_needs(params)
+
+                def load(p):
+                    # All but the sources' depth maps, which the sweep
+                    # running meanwhile may be writing.
+                    return scene.load_problem_inputs(
+                        p, scale_size, **{**needs, "need_src_depths": False})
+
+                # The host loads the next problem's inputs (decode, resize,
+                # priors) while the device sweeps the current one. A
+                # geometric pass reads its sources' depth maps just before
+                # its sweep, so that, as in the sequential reference, it
+                # sees this iteration's map of every source swept before it.
+                with cf.ThreadPoolExecutor(max_workers=1) as pool:
+                    fut = pool.submit(load, problems[0])
+                    for idx, p in enumerate(problems):
+                        inputs = fut.result()
+                        if idx + 1 < len(problems):
+                            fut = pool.submit(load, problems[idx + 1])
+                        if needs["need_src_depths"]:
+                            with span("load"):
+                                inputs = scene.add_pass_inputs(
+                                    inputs, p.result_folder,
+                                    scene.view_folders(p), need_prior=False,
+                                    need_weak=False, need_src_depths=True)
+                        p.iteration = iteration
+                        process_problem(p, params, scale_size, max_scale,
+                                        v_pad, cfg, device=device,
+                                        verbose=verbose, inputs=inputs,
+                                        rect_frame=rect_frame, timer=span)
+                _save_progress(dense_folder, iteration)
+                if verbose:
+                    print(f"Iteration {iteration + 1} / {round_num * 4} done "
+                          f"in {time.time() - t_it:.2f}s")
+            elif verbose:
+                print(f"Iteration {iteration + 1} / {round_num * 4} "
+                      "resumed from checkpoint")
+            iteration += 1
+        # Round boundary: this scale's rect hosts (warp fields of every view
+        # of every problem) are never used again.
+        _RECT_HOSTS.clear()
+
+    for p in problems:
+        export_npy(p, depth=depth, normal=normal, weak=weak, edge=edge)
+    if not keep_intermediates:
+        cleanup_intermediates(problems, round_num)
+    if verbose:
+        if GLOBAL_TIMER.totals:
+            print("Per-stage wall clock:\n" + GLOBAL_TIMER.summary())
+        print("All done")
+    return 0

@@ -1,20 +1,23 @@
-"""Synthetic MVS scenes with known ground truth, rendered in memory.
+"""Synthetic MVS scenes with known ground truth.
 
-Port of :func:`dpe_mvs_tpu.utils.synthetic.make_plane_scene` without OpenCV
-and without a folder: the same cameras, depth ranges and ground-truth depths
+Port of :func:`dpe_mvs_tpu.utils.synthetic.make_plane_scene` without OpenCV,
+rendered in memory: the same cameras, depth ranges and ground-truth depths
 and normals for the same arguments and seed, and a texture of the same kind
 (three octaves of seeded noise, bicubic-upsampled) sampled bilinearly. The
-images are quantized to uint8 as the folder version's are (it additionally
-stores them as JPEG, which this renderer does not emulate).
+images are quantized to uint8 as the folder version's are.
+:func:`write_scene_folder` writes a scene as a dense folder, its images as
+lossless PNG bytes (the JAX package stores JPEG).
 """
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 from typing import List, Optional
 
 import numpy as np
 
 from ..engine.state import CameraData, ProblemInputs
+from ..io import formats, imread
 
 
 def _cubic_matrix(n_out: int, n_in: int) -> np.ndarray:
@@ -178,14 +181,37 @@ def make_plane_scene(*, width: int = 160, height: int = 120,
                       weak_region=weak_region_v0)
 
 
+def write_scene_folder(scene: PlaneScene, folder) -> Path:
+    """Write ``scene`` as a dense folder (the folder half of the JAX
+    package's ``make_plane_scene``): each view's uint8 image as PNG bytes at
+    ``images/%08d.jpg`` (readers decode by signature), ``cams/%08d_cam.txt``
+    with the depth line ``dmin, (dmax - dmin) / 192, 192, dmax``, and
+    ``pair.txt`` listing every other view at score 100. Returns the
+    folder."""
+    folder = Path(folder)
+    (folder / "images").mkdir(parents=True, exist_ok=True)
+    (folder / "cams").mkdir(parents=True, exist_ok=True)
+    pairs = []
+    for v, (img, cam) in enumerate(zip(scene.images, scene.cameras)):
+        imread.write_png_gray(folder / "images" / f"{v:08d}.jpg",
+                              img.astype(np.uint8))
+        dmin, dmax = cam.depth_min, cam.depth_max
+        formats.write_cam_txt(folder / "cams" / f"{v:08d}_cam.txt", cam.K,
+                              cam.R, cam.t, dmin, (dmax - dmin) / 192.0, 192,
+                              dmax)
+        pairs.append((v, [(s, 100.0) for s in scene.src_ids(v)]))
+    formats.write_pair_txt(folder / "pair.txt", pairs)
+    return folder
+
+
 def support_maps(image: np.ndarray, edge_percentile: float = 85.0):
     """In-memory stand-in for a problem's (edge, edge_low, label) support
     maps, for driving the weak machinery and the edge-bounded sampling
     without a dense folder.
 
-    The real maps come from the JAX package's ``edges/dual_level`` (Canny
-    edges and Hough-completed Roberts regions), which needs OpenCV; edge
-    extraction is ported with the pipeline. Here, with numpy and scipy:
+    The pipeline's maps come from :mod:`dpe_mvs_tpu_torch.edges.dual_level`
+    (Canny edges and Hough-completed Roberts regions, cached per scale by
+    ``pipeline.schedule.get_problem_edges``). Here, with numpy and scipy:
 
       - ``edge``: the Sobel gradient magnitude above its
         ``edge_percentile``-th percentile;

@@ -1,7 +1,9 @@
 """The PyTorch port stands alone: importing every module of
-``dpe_mvs_tpu_torch`` and ``chip_smoke`` loads neither ``jax`` nor any
-module of the JAX package ``dpe_mvs_tpu``. Checked in a fresh interpreter,
-outside this suite's conftest (which imports jax)."""
+``dpe_mvs_tpu_torch`` (among them ``api`` and ``cli``) and ``chip_smoke``
+loads neither ``jax``, nor any module of the JAX package ``dpe_mvs_tpu``,
+nor ``cv2`` (the machine with the card has none of them), and neither does
+reading a PNG scene image through ``io/imread``. Checked in a fresh
+interpreter, outside this suite's conftest (which imports jax)."""
 import subprocess
 import sys
 from pathlib import Path
@@ -9,17 +11,26 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 _PROBE = """
-import importlib, pkgutil, sys
+import importlib, pkgutil, sys, tempfile
+from pathlib import Path
+import numpy as np
 import dpe_mvs_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(dpe_mvs_tpu_torch.__path__,
                                                'dpe_mvs_tpu_torch.')]
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+from dpe_mvs_tpu_torch.io import imread
+path = Path(tempfile.mkdtemp()) / '00000000.jpg'
+img = np.arange(35, dtype=np.uint8).reshape(5, 7)
+imread.write_png_gray(path, img)
+assert (imread.read_gray(path) == img).all()
 bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith('jax.') or m == 'dpe_mvs_tpu'
-             or m.startswith('dpe_mvs_tpu.'))
+             or m.startswith('dpe_mvs_tpu.') or m == 'cv2'
+             or m.startswith('cv2.'))
 print(len(names), 'modules;', 'loaded:', bad)
+print(' '.join(names))
 sys.exit(1 if bad else 0)
 """
 
@@ -29,4 +40,19 @@ def test_port_imports_no_jax_and_no_jax_package():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     n = int(res.stdout.split()[0])
-    assert n >= 25, res.stdout          # every module of the port was seen
+    assert n >= 33, res.stdout          # every module of the port was seen
+    names = res.stdout.splitlines()[1].split()
+    for mod in ("api", "cli", "edges.dual_level", "edges.imgproc",
+                "io.imread", "io.scene", "utils.profiling"):
+        assert f"dpe_mvs_tpu_torch.{mod}" in names
+
+
+def test_port_sources_never_import_cv2():
+    """Not even lazily, on any path."""
+    for path in [*sorted((ROOT / "dpe_mvs_tpu_torch").rglob("*.py")),
+                 ROOT / "chip_smoke.py"]:
+        for line in path.read_text().splitlines():
+            words = line.split()
+            assert not (words[:2] == ["import", "cv2"]
+                        or words[:2] == ["from", "cv2"]
+                        or "import cv2" in line), f"{path}: {line}"

@@ -27,6 +27,7 @@ import torch_parity
 from dpe_mvs_tpu_torch.engine import rectcost as trc
 from dpe_mvs_tpu_torch.engine import stages as tstages
 from dpe_mvs_tpu_torch.engine import state as tst
+from dpe_mvs_tpu_torch.io import scene as tscene
 from dpe_mvs_tpu_torch.pipeline import schedule as tschedule
 
 import jax
@@ -159,8 +160,8 @@ def test_pass_b_sweep(scene, monkeypatch, tmp_path):
         return out
     monkeypatch.setattr(tstages, "_weak_iter", recording_weak_iter)
 
-    prob = tschedule.Problem(result_folder=tmp_path / "port", ref_image_id=0,
-                             iteration=1)
+    prob = tscene.Problem(index=0, ref_image_id=0, src_image_ids=[1, 2],
+                          dense_folder=tmp_path / "port", iteration=1)
     tschedule.process_problem(
         prob, torch_parity.port_params(s["params"]), 1, 0, s["v_pad"],
         torch_parity.port_engine_config(s["cfg"]), device="cpu",

@@ -1,0 +1,322 @@
+"""The PyTorch port's pipeline (round loop, API, CLI) against the JAX
+package's.
+
+  * The port's ``run_pipeline`` on a 64x48x3 ``write_scene_folder`` scene,
+    2 rounds (8 iterations, 24 sweeps) on the CPU: ``depth.npy`` meets the
+    rect-engine bar of ``tests/test_pipeline.py`` (median relative error <
+    0.03, valid > 0.4); the edge and label maps it left equal JAX
+    ``get_problem_edges`` on the same folder (labels as a partition); JAX
+    ``export_npy`` on its state gives its ``.npy`` files byte for byte; its
+    cleanup leaves the files the JAX rule leaves.
+  * Round-loop parity without sweeps: both packages' ``run_pipeline`` on
+    the same folder, each with ``process_problem`` stubbed (the stub writes
+    a constant plane's state files so later passes load), make the same
+    ordered calls: view, iteration, scale, max scale, view padding, rect
+    frame, every parameter field and which stored inputs were loaded.
+  * Resume after a ``progress.json`` written by the JAX helper sweeps only
+    the iterations after it.
+  * A geometric pass reads, for every source swept before it, the depth map
+    of the same iteration, as the sequential reference does, although the
+    next problem's inputs load while the current one sweeps.
+  * ``StageTimer`` sums host spans per stage (and, on a card, event spans
+    without blocking the host).
+  * ``dpe_mvs`` and the CLI: the JAX positional signature and defaults,
+    usage error, RuntimeError for a missing folder, a corrupt camera file
+    and a missing image; fusion, viz and parallel raise
+    NotImplementedError.
+"""
+import dataclasses
+import inspect
+import shutil
+import time
+
+import numpy as np
+import pytest
+import torch
+
+import torch_parity  # noqa: F401  (one torch thread per worker)
+from dpe_mvs_tpu_torch import api as tapi
+from dpe_mvs_tpu_torch import cli as tcli
+from dpe_mvs_tpu_torch.config import EngineConfig as TEngineConfig
+from dpe_mvs_tpu_torch.io import formats as tformats
+from dpe_mvs_tpu_torch.io import scene as tscene
+from dpe_mvs_tpu_torch.pipeline import schedule as tschedule
+from dpe_mvs_tpu_torch.utils import synthetic as tsynth
+from dpe_mvs_tpu_torch.utils.profiling import StageTimer
+
+W, H, VIEWS, SEED = 64, 48, 3, 4
+
+
+def _folder(path, width=W, height=H, views=VIEWS, seed=SEED):
+    sc = tsynth.make_plane_scene(width=width, height=height,
+                                 num_views=views, seed=seed)
+    return sc, tsynth.write_scene_folder(sc, path)
+
+
+@pytest.fixture(scope="module")
+def port_run(tmp_path_factory):
+    sc, folder = _folder(tmp_path_factory.mktemp("torch_pipeline") / "s")
+    ret = tschedule.run_pipeline(folder, verbose=False, depth=True,
+                                 normal=True, weak=True, edge=True,
+                                 keep_intermediates=True, device="cpu")
+    return sc, folder, ret
+
+
+def test_pipeline_depth_meets_bar(port_run):
+    sc, folder, ret = port_run
+    assert ret == 0
+    for v in range(VIEWS):
+        rf = folder / "DPE" / f"{v:08d}"
+        d = np.load(rf / "depth.npy")
+        assert d.dtype == np.float32 and d.shape == (H, W)
+        n = np.load(rf / "normal.npy")
+        assert n.dtype == np.float32 and n.shape == (H, W, 3)
+        for name in ("weak.npy", "edge.npy"):
+            a = np.load(rf / name)
+            assert a.dtype == np.int8 and a.shape == (H, W)
+    d = np.load(folder / "DPE" / "00000000" / "depth.npy")
+    gt = sc.gt_depths[0]
+    valid = d > 0
+    assert valid.mean() > 0.4
+    err = np.median(np.abs(d[valid] - gt[valid]) / gt[valid])
+    assert err < 0.03, err
+    assert set(np.unique(np.load(folder / "DPE" / "00000000" /
+                                 "weak.npy"))) <= {0, 1, 2}
+
+
+def test_edge_and_label_maps_equal_jax(port_run, tmp_path):
+    from dpe_mvs_tpu.config import PatchMatchParams
+    from dpe_mvs_tpu.io import formats as jformats
+    from dpe_mvs_tpu.io import scene as jscene
+    from dpe_mvs_tpu.pipeline import schedule as jschedule
+    _, folder, _ = port_run
+    copy = tmp_path / "jax"
+    shutil.copytree(folder, copy, ignore=shutil.ignore_patterns("DPE"))
+    for p in jscene.generate_sample_list(copy):
+        for scale_size, s in ((2, 1), (1, 0)):
+            jschedule.get_problem_edges(p, scale_size, PatchMatchParams())
+            ours = folder / "DPE" / f"{p.ref_image_id:08d}"
+            np.testing.assert_array_equal(
+                tformats.read_dmb(ours / f"edges_{s}.dmb"),
+                jformats.read_dmb(p.result_folder / f"edges_{s}.dmb"))
+            a = tformats.read_dmb(ours / f"labels_{s}.dmb")
+            b = jformats.read_dmb(p.result_folder / f"labels_{s}.dmb")
+            assert a.dtype == b.dtype == np.int32
+            np.testing.assert_array_equal(a == 0, b == 0)
+            np.testing.assert_array_equal(a == -1, b == -1)
+            pairs = np.unique(np.stack([a[a > 0], b[a > 0]]), axis=1)
+            assert len(np.unique(pairs[0])) == pairs.shape[1] == \
+                len(np.unique(pairs[1]))
+
+
+def test_jax_export_reads_port_state(port_run):
+    from dpe_mvs_tpu.io import scene as jscene
+    from dpe_mvs_tpu.pipeline import schedule as jschedule
+    _, folder, _ = port_run
+    names = ("depth.npy", "normal.npy", "weak.npy", "edge.npy")
+    for p in jscene.generate_sample_list(folder):
+        ours = {n: (p.result_folder / n).read_bytes() for n in names}
+        jschedule.export_npy(p, depth=True, normal=True, weak=True,
+                             edge=True)
+        for n in names:
+            assert (p.result_folder / n).read_bytes() == ours[n], n
+
+
+def test_cleanup_leaves_what_jax_leaves(port_run, tmp_path):
+    from dpe_mvs_tpu.io import scene as jscene
+    from dpe_mvs_tpu.pipeline import schedule as jschedule
+    _, folder, _ = port_run
+    assert (folder / "DPE" / "progress.json").exists()
+    a, b = tmp_path / "a", tmp_path / "b"
+    shutil.copytree(folder, a)
+    shutil.copytree(folder, b)
+    tschedule.cleanup_intermediates(tscene.generate_sample_list(a), 2)
+    jschedule.cleanup_intermediates(jscene.generate_sample_list(b), 2)
+
+    def files(root):
+        return sorted(str(p.relative_to(root)) for p in root.rglob("*")
+                      if p.is_file())
+    assert files(a) == files(b)
+    left = [f for f in files(a) if f.startswith("DPE")]
+    assert sorted(left) == sorted(
+        f"DPE/{v:08d}/{n}" for v in range(VIEWS)
+        for n in ("depth.npy", "normal.npy", "weak.npy", "edge.npy"))
+
+
+def _plane_stub(calls):
+    """A process_problem of either package that records its call and writes
+    a constant plane's state at the inputs' size."""
+    def stub(problem, params, scale_size, max_scale, v_pad, cfg, *args,
+             inputs=None, rect_frame=None, **kw):
+        p = {k: (int(v) if k == "state" else v)
+             for k, v in dataclasses.asdict(params).items()}
+        calls.append((problem.ref_image_id, problem.iteration, scale_size,
+                      max_scale, v_pad,
+                      None if rect_frame is None else tuple(rect_frame),
+                      tuple(sorted(p.items())),
+                      inputs.prior_depth is not None,
+                      inputs.weak_info is not None,
+                      inputs.src_depths is not None,
+                      inputs.width, inputs.height))
+        rf = problem.result_folder
+        hw = (inputs.height, inputs.width)
+        tformats.write_dmb(rf / "depths.dmb", np.full(
+            hw, 0.5 * (inputs.depth_min + inputs.depth_max), np.float32))
+        normal = np.zeros(hw + (3,), np.float32)
+        normal[..., 2] = -1.0
+        tformats.write_dmb(rf / "normals.dmb", normal)
+        tformats.write_dmb(rf / "weak.bin", np.ones(hw, np.uint8))
+        tformats.write_dmb(rf / "selected_views.bin", np.ones(hw, np.int32))
+    return stub
+
+
+def test_round_loop_parity_without_sweeps(tmp_path, monkeypatch):
+    from dpe_mvs_tpu.config import EngineConfig
+    from dpe_mvs_tpu.pipeline import schedule as jschedule
+    _, folder = _folder(tmp_path / "port", views=4)
+    pairs = tformats.read_pair_txt(folder / "pair.txt")
+    pairs[2] = (2, [(0, 100.0), (1, 0.0), (3, 50.0)])   # a dropped source
+    tformats.write_pair_txt(folder / "pair.txt", pairs)
+    jfolder = tmp_path / "jax"
+    shutil.copytree(folder, jfolder)
+    ours, ref = [], []
+    monkeypatch.setattr(tschedule, "process_problem", _plane_stub(ours))
+    monkeypatch.setattr(jschedule, "process_problem", _plane_stub(ref))
+    # coarse_target 16: three rounds (scales 4, 2, 1), 12 iterations.
+    assert tschedule.run_pipeline(folder, verbose=False,
+                                  cfg=TEngineConfig(coarse_target=16),
+                                  device="cpu") == 0
+    assert jschedule.run_pipeline(
+        jfolder, verbose=False,
+        cfg=EngineConfig(coarse_target=16, use_rect=True)) == 0
+    assert len(ours) == 12 * 4
+    assert [c[1] for c in ours[::4]] == list(range(12))
+    assert {c[2] for c in ours} == {4, 2, 1}
+    assert all(c[5] is not None for c in ours)
+    assert ours == ref
+    for name in ("depth.npy",):
+        for v in range(4):
+            assert (folder / "DPE" / f"{v:08d}" / name).read_bytes() == \
+                (jfolder / "DPE" / f"{v:08d}" / name).read_bytes()
+
+
+def test_resume_skips_done_iterations(tmp_path, monkeypatch):
+    from dpe_mvs_tpu.pipeline import schedule as jschedule
+    _, folder = _folder(tmp_path / "s")
+    calls = []
+    monkeypatch.setattr(tschedule, "process_problem", _plane_stub(calls))
+    tschedule.run_pipeline(folder, verbose=False, keep_intermediates=True,
+                           device="cpu")
+    assert [c[1] for c in calls] == [i for i in range(8)
+                                     for _ in range(VIEWS)]
+    assert jschedule._load_progress(folder) == 7
+    jschedule._save_progress(folder, 4)
+    calls.clear()
+    assert tschedule.run_pipeline(folder, verbose=False, resume=True,
+                                  device="cpu") == 0
+    assert [c[1] for c in calls] == [i for i in (5, 6, 7)
+                                     for _ in range(VIEWS)]
+    assert not (folder / "DPE" / "progress.json").exists()
+
+
+def test_geometric_pass_reads_this_iterations_source_depths(tmp_path,
+                                                             monkeypatch):
+    _, folder = _folder(tmp_path / "s")
+    seen = []
+    plane = _plane_stub([])
+
+    def stub(problem, params, *args, inputs=None, **kw):
+        if inputs.src_depths is not None:
+            ids = [problem.ref_image_id] + list(problem.src_image_ids)
+            seen.append((problem.iteration, problem.ref_image_id,
+                         {i: float(d[0, 0])
+                          for i, d in zip(ids, inputs.src_depths)}))
+        time.sleep(0.2)            # the next problem's inputs load meanwhile
+        plane(problem, params, *args, inputs=inputs, **kw)
+        tformats.write_dmb(problem.result_folder / "depths.dmb", np.full(
+            (inputs.height, inputs.width),
+            1000.0 * problem.iteration + problem.ref_image_id + 1,
+            np.float32))
+    monkeypatch.setattr(tschedule, "process_problem", stub)
+    assert tschedule.run_pipeline(folder, verbose=False, device="cpu") == 0
+    # Passes B of both rounds: iterations 1-3 and 5-7, every view.
+    assert [(it, ref) for it, ref, _ in seen] == [
+        (it, v) for it in (1, 2, 3, 5, 6, 7) for v in range(VIEWS)]
+    for it, ref, depths in seen:
+        for v, d in depths.items():
+            done = it if v < ref else it - 1     # views sweep in id order
+            assert d == 1000.0 * done + v + 1, (it, ref, v, d)
+
+
+def test_stage_timer_host_spans():
+    timer = StageTimer()
+    for _ in range(3):
+        with timer.span("a"):
+            time.sleep(0.01)
+    with timer.span("b", device="cpu"):
+        pass
+    assert timer.counts == {"a": 3, "b": 1}
+    assert 0.03 <= timer.totals["a"] < 1.0 and timer.totals["b"] < 0.01
+    assert [ln.split()[0] for ln in timer.summary().splitlines()] == \
+        ["a", "b"]
+
+
+@pytest.mark.gpu
+@pytest.mark.skipif("not torch.cuda.is_available()",
+                    reason="needs a CUDA device")
+def test_gpu_stage_timer_event_spans():
+    timer = StageTimer()
+    with timer.span("sleep", device="cuda"):
+        torch.cuda._sleep(100_000_000)       # ~50 ms of device time
+    t_host = time.perf_counter()
+    with timer.span("empty", device="cuda"):
+        pass
+    t_host = time.perf_counter() - t_host
+    assert t_host < 0.01                     # the span did not wait
+    assert timer.totals["sleep"] > 0.01
+    assert timer.counts == {"sleep": 1, "empty": 1}
+
+
+def test_api_signature_and_cli_usage():
+    from dpe_mvs_tpu import api as japi
+    sig, jsig = inspect.signature(tapi.dpe_mvs), \
+        inspect.signature(japi.dpe_mvs)
+
+    def positional(s):
+        return [(n, p.default) for n, p in s.parameters.items()
+                if p.kind is not inspect.Parameter.KEYWORD_ONLY]
+    assert positional(sig) == positional(jsig)
+    assert [n for n, _ in positional(sig)] == [
+        "dense_folder", "gpu_index", "verbose", "fusion", "viz", "depth",
+        "normal", "weak", "edge"]
+    kw = {n for n, p in sig.parameters.items()
+          if p.kind is inspect.Parameter.KEYWORD_ONLY}
+    assert {"cfg", "resume", "device"} <= kw
+    assert tcli.main([]) == 1
+
+
+def test_api_errors_are_runtime_errors(tmp_path):
+    with pytest.raises(RuntimeError):
+        tapi.dpe_mvs(str(tmp_path / "nonexistent"), device="cpu")
+    _, a = _folder(tmp_path / "a", width=48, height=36)
+    (a / "cams" / "00000000_cam.txt").write_text("extrinsic\nnot a number\n")
+    with pytest.raises(RuntimeError):
+        tapi.dpe_mvs(str(a), device="cpu")
+    _, b = _folder(tmp_path / "b", width=48, height=36)
+    (b / "images" / "00000001.jpg").unlink()
+    with pytest.raises(RuntimeError):
+        tapi.dpe_mvs(str(b), device="cpu")
+
+
+def test_unported_options_raise(tmp_path):
+    _, folder = _folder(tmp_path / "s", width=48, height=36)
+    for kw in ({"fusion": True}, {"viz": True}):
+        with pytest.raises(NotImplementedError, match="slice 4"):
+            tapi.dpe_mvs(str(folder), device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        tapi.dpe_mvs(str(folder), device="cpu", parallel=True)
+    if not torch.cuda.is_available():        # the card is the default
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tapi.dpe_mvs(str(folder))
+        with pytest.raises(RuntimeError, match="not available"):
+            tschedule.run_pipeline(folder, verbose=False)

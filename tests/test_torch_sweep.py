@@ -151,22 +151,25 @@ def test_cv2_free_renderer_matches_folder_scene(folder_scene):
 
 
 def test_process_problem_rejects_later_passes(tmp_path):
-    """What is not ported yet raises, naming its slice: loading a dense
-    folder (slice 3) and the exact engine (slice 5). A pass with the weak
-    machinery or edges needs the support maps."""
+    """What is not ported yet raises, naming its slice: the exact engine
+    (slice 5). Without inputs a sweep loads its problem from the dense
+    folder, and a pass with the weak machinery or edges reads the round's
+    edge and label maps from the problem's cache: missing files raise."""
     from dpe_mvs_tpu_torch import config as tcfg
     from dpe_mvs_tpu_torch.engine import stages as tstages
+    from dpe_mvs_tpu_torch.io import scene as tscene
     mem = tsynth.make_plane_scene(width=32, height=24, num_views=2, seed=1)
-    prob = tschedule.Problem(result_folder=tmp_path, ref_image_id=0)
+    prob = tscene.Problem(index=0, ref_image_id=0, src_image_ids=[1],
+                          dense_folder=tmp_path)
     pass_a = tcfg.schedule_params(tcfg.PatchMatchParams(), 0, None)
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(FileNotFoundError, match="00000000.jpg"):
         tschedule.process_problem(prob, pass_a, 1, 1, 1, tcfg.EngineConfig(),
                                   device="cpu")
     with pytest.raises(NotImplementedError, match="slice 5"):
         tstages.check_engine(None)
     for params in (tcfg.schedule_params(tcfg.PatchMatchParams(), 1, None),
                    tcfg.schedule_params(tcfg.PatchMatchParams(), 1, 0)):
-        with pytest.raises(ValueError, match="support_maps"):
+        with pytest.raises(FileNotFoundError, match="edges_0.dmb"):
             tschedule.process_problem(prob, params, 1, 1, 1,
                                       tcfg.EngineConfig(), device="cpu",
                                       inputs=mem.problem_inputs(0))
@@ -176,8 +179,10 @@ def test_cuda_device_is_never_replaced(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device exists here")
     from dpe_mvs_tpu_torch import config as tcfg
+    from dpe_mvs_tpu_torch.io import scene as tscene
     mem = tsynth.make_plane_scene(width=32, height=24, num_views=2, seed=1)
-    prob = tschedule.Problem(result_folder=tmp_path, ref_image_id=0)
+    prob = tscene.Problem(index=0, ref_image_id=0, src_image_ids=[1],
+                          dense_folder=tmp_path)
     pass_a = tcfg.schedule_params(tcfg.PatchMatchParams(), 0, None)
     for kw in ({"device": "cuda"}, {}):       # the card is the default
         with pytest.raises(RuntimeError, match="not available"):
