@@ -61,26 +61,38 @@ pipeline by the CLI, as a user runs it. Phases:
      and the peak device memory;
   9. the pipeline: the scene written to a dense folder
      (``utils.synthetic.write_scene_folder``, PNG bytes) and run in-process
-     by ``dpe_mvs_tpu_torch.cli.main([folder, "0", "1", "0", "0", "1", "1",
-     "1", "1"])`` (card 0, verbose, no viz, no fusion, all four exports):
-     the schedule's 2 rounds (400x300, then 800x600), 8 iterations of 6
-     sweeps, with the dual-level edge and label maps of ``edges/
-     dual_level``. Counters set to 0 just before and read just after; all
-     five kernel entries must have launched; problem 0's ``depth.npy`` must
-     meet the bar of phase 6; every problem's four exports must exist with
-     the JAX package's dtypes and shapes; the intermediate files must be
-     gone; neither cv2 nor jax may be loaded; each kernel must be bit-exact
-     against its plain version at every shape the run gave it (the first
-     inputs of each shape captured as in phases 5 and 7). Prints seconds per
-     iteration, the per-stage summary (``utils.profiling.GLOBAL_TIMER``,
-     spans timed by CUDA events), edge-extraction seconds per scale, problem
-     0's edge and label shares per scale, launches per kernel entry per
-     round, the peak device memory (captured inputs included, their bytes
-     beside it) and every problem's depth error.
+     by ``dpe_mvs_tpu_torch.cli.main([folder, "0", "1", "0", "1", "1", "1",
+     "1", "1"])`` (card 0, verbose, no viz, fusion, all four exports): the
+     schedule's 2 rounds (400x300, then 800x600), 8 iterations of 6 sweeps,
+     with the dual-level edge and label maps of ``edges/dual_level``, then
+     fusion of the 6 depth maps into ``DPE/DPE.ply`` on the card. Counters
+     set to 0 just before and read just after; all five kernel entries must
+     have launched; fusion must have launched ``gather2d_hwc`` 3 times per
+     (reference, source) pair and nothing else; problem 0's ``depth.npy``
+     must meet the bar of phase 6; every problem's four exports must exist
+     with the JAX package's dtypes and shapes; ``DPE.ply`` must read back
+     through ``io.formats.read_ply`` with more than 100 000 points and a
+     precision above 0.9 against the analytic plane at tau = 0.005 x the
+     median ground-truth depth (``tools/torch_eval.fscore``), and differ
+     in at most 0.01% of its points from the cloud the same fusion gives on
+     the CPU from a copy of the state; the intermediate files must be gone; neither cv2 nor jax may be loaded;
+     each kernel must be bit-exact against its plain version at every shape
+     the run gave it, fusion's among them (the first inputs of each shape
+     captured as in phases 5 and 7). Fusion's gather2d_hwc shapes are timed
+     (kernel, plain version and library call in turns, L2-cold) and summed
+     over its launches. Prints seconds per iteration, the sweep loop's and
+     fusion's seconds apart, the per-stage summary
+     (``utils.profiling.GLOBAL_TIMER``, spans timed by CUDA events),
+     edge-extraction seconds per scale, problem 0's edge and label shares
+     per scale, launches per kernel entry per round and in fusion, the peak
+     device memory (captured inputs included, their bytes beside it), every
+     problem's depth error and the cloud's point count, precision, recall
+     and F-score.
 
 Exits non-zero, without the result lines, when there is no CUDA device or
 any phase fails. The line before the last holds the kernel records as JSON
-(``launches``: the pipeline's; ``launches_by_path``: every path's); the last
+(``launches``: the pipeline's, fusion's included; ``launches_by_path``:
+every path's); the last
 line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -348,15 +360,19 @@ def pipeline_phase(sc, folder: Path, launches, reset, modules) -> dict:
     module docstring but the kernels' (the caller's, on what this returns).
     ``launches`` / ``reset`` read and zero the kernel counters; ``modules``
     maps each kernel entry to its module, for :class:`Capture`. Returns
-    {"all": launches of the run, "rounds": [launches per round], "seen":
-    the captured inputs per entry}."""
+    {"all": launches of the run, "rounds": [launches per round], "fusion":
+    launches in fusion, "fusion_sigs": fusion's gather2d_hwc calls per
+    captured signature, "fusion_s": fusion's seconds, "seen": the captured
+    inputs per entry}."""
     import numpy as np
     import torch
     from dpe_mvs_tpu_torch import cli
-    from dpe_mvs_tpu_torch.io import formats
+    from dpe_mvs_tpu_torch.io import formats, scene
+    from dpe_mvs_tpu_torch.pipeline import fusion as fus
     from dpe_mvs_tpu_torch.pipeline import schedule as sch
     from dpe_mvs_tpu_torch.utils.profiling import GLOBAL_TIMER
     from dpe_mvs_tpu_torch.utils.synthetic import write_scene_folder
+    from tools.torch_eval import backproject_gt, depth_scale, fscore
 
     phase("9. the pipeline through the CLI")
     t0 = time.time()
@@ -365,8 +381,9 @@ def pipeline_phase(sc, folder: Path, launches, reset, modules) -> dict:
 
     # Wrappers around the schedule's own calls: per-sweep time and launches,
     # and problem 0's maps as each scale's are written.
-    per_iter, per_scale, shares = {}, {}, {}
+    per_iter, per_scale, shares, fused = {}, {}, {}, {}
     sweep_fn, edges_fn = sch.process_problem, sch.get_problem_edges
+    fusion_fn = fus.run_fusion
 
     def sweep(problem, params, scale_size, *args, **kw):
         before, ts = launches(), time.time()
@@ -389,8 +406,27 @@ def pipeline_phase(sc, folder: Path, launches, reset, modules) -> dict:
                          float((lab > 0).mean()), float((lab < 0).mean()),
                          int(lab.max()))
 
-    argv = [str(folder), "0", "1", "0", "0", "1", "1", "1", "1"]
+    def fusion(dense_folder, problems, **kw):
+        # The state fusion reads, kept for the plain run on the CPU after
+        # the pipeline (whose cleanup deletes it).
+        shutil.copytree(dense_folder, cpu_copy)
+        torch.cuda.synchronize()
+        before, sigs, ts = launches(), cap.counts()["gather2d_hwc"], \
+            time.time()
+        out = fusion_fn(dense_folder, problems, **kw)
+        torch.cuda.synchronize()
+        fused["s"] = time.time() - ts
+        fused["launches"] = {k: v - before[k] for k, v in launches().items()}
+        fused["sigs"] = {sig: n - sigs.get(sig, 0) for sig, n in
+                         cap.counts()["gather2d_hwc"].items()
+                         if n > sigs.get(sig, 0)}
+        fused["pairs"] = sum(len(p.src_image_ids) for p in problems)
+        return out
+
+    cpu_copy = folder.parent / "fusion_on_cpu"
+    argv = [str(folder), "0", "1", "0", "1", "1", "1", "1", "1"]
     sch.process_problem, sch.get_problem_edges = sweep, edges
+    fus.run_fusion = fusion
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -403,6 +439,7 @@ def pipeline_phase(sc, folder: Path, launches, reset, modules) -> dict:
             counts = launches()
     finally:
         sch.process_problem, sch.get_problem_edges = sweep_fn, edges_fn
+        fus.run_fusion = fusion_fn
     peak = torch.cuda.max_memory_allocated()
     held = sum(a.untyped_storage().nbytes() for seen in cap.seen.values()
                for _, args in seen.values() for a in args)
@@ -418,6 +455,16 @@ def pipeline_phase(sc, folder: Path, launches, reset, modules) -> dict:
         f"{it} {t:.2f}" for it, t in sorted(per_iter.items())))
     if sorted(per_iter) != list(range(8)):
         fail(f"expected iterations 0-7, ran {sorted(per_iter)}")
+    if "s" not in fused:
+        fail("the pipeline did not run fusion")
+    print(f"sweeps {sum(per_iter.values()):.2f} s, fusion {fused['s']:.2f} s "
+          f"(span 'fusion' {GLOBAL_TIMER.totals.get('fusion', 0.0):.2f} s); "
+          f"launches in fusion {fused['launches']}")
+    want = {k: 3 * fused["pairs"] if k == "gather2d_hwc" else 0
+            for k in fused["launches"]}
+    if fused["launches"] != want:
+        fail(f"fusion launched {fused['launches']}, expected {want} (three "
+             f"gather2d_hwc per reference-source pair)")
     print("per-stage time (GLOBAL_TIMER, CUDA events):\n"
           + GLOBAL_TIMER.summary())
     print("edge extraction, all problems: " + ", ".join(
@@ -458,9 +505,50 @@ def pipeline_phase(sc, folder: Path, launches, reset, modules) -> dict:
             fail(f"problem {v}: intermediates left: {left}")
     if (folder / "DPE" / "progress.json").exists():
         fail("progress.json left")
+    ply = folder / "DPE" / "DPE.ply"
+    if not ply.is_file():
+        fail("DPE/DPE.ply missing")
+    cloud, colors = formats.read_ply(ply)
+    tau = 0.005 * depth_scale(sc)
+    t0 = time.time()
+    rep = fscore(cloud, backproject_gt(sc), tau)
+    print(f"fused cloud: {cloud.shape[0]} points, precision "
+          f"{rep['precision']}, recall {rep['recall']}, F {rep['fscore']} "
+          f"at tau {tau:.5f} (0.005 x median depth; scored in "
+          f"{time.time() - t0:.1f} s)")
+    if cloud.shape[0] <= 100_000 or colors.shape != cloud.shape or \
+            not np.isfinite(cloud).all():
+        fail(f"fused cloud of {cloud.shape[0]} points (need > 100000, "
+             f"finite, one colour each)")
+    if not rep["precision"] > 0.9:
+        fail(f"fused cloud precision {rep['precision']} <= 0.9")
+
+    # The same fusion on the CPU (the gathers' plain versions) from the same
+    # state. The card's expf / acosf may round an ulp away from the CPU's,
+    # so a pixel exactly at a vote threshold could flip: the clouds may
+    # differ in at most 0.01% of their points (point and colour bytes).
+    t0 = time.time()
+    fusion_fn(cpu_copy, scene.generate_sample_list(cpu_copy), device="cpu")
+    cpu_s = time.time() - t0
+    ref_cloud, ref_colors = formats.read_ply(cpu_copy / "DPE" / "DPE.ply")
+
+    def records(pts, cols):
+        raw = np.concatenate([pts.view(np.uint8).reshape(len(pts), 12),
+                              cols], axis=1)
+        return np.ascontiguousarray(raw).view("V15")[:, 0]
+    differ = np.setxor1d(records(cloud, colors),
+                         records(ref_cloud, ref_colors)).size
+    print(f"fusion on the CPU: {cpu_s:.2f} s, {ref_cloud.shape[0]} points; "
+          f"points in one cloud only: {differ}")
+    if differ > 1e-4 * cloud.shape[0]:
+        fail("the card's fused cloud and the CPU's differ in more than 0.01%"
+             " of the points")
+    shutil.rmtree(cpu_copy, ignore_errors=True)
     if any(m.split(".")[0] in ("jax", "cv2") for m in sys.modules):
         fail("the pipeline loaded jax or cv2")
-    return {"all": counts, "rounds": rounds, "seen": cap.seen}
+    return {"all": counts, "rounds": rounds, "fusion": fused["launches"],
+            "fusion_sigs": fused["sigs"], "fusion_s": fused["s"],
+            "seen": cap.seen}
 
 
 def main() -> None:
@@ -1032,6 +1120,41 @@ def main() -> None:
         check(name, launches_p["seen"][name], "pipeline")
         print(f"{name}, pipeline: {len(launches_p['seen'][name])} shapes "
               f"bit-exact")
+    # Fusion's gathers: each shape's kernel, plain version and library call
+    # in turns (L2-cold: the flush buffer again), times its launches in
+    # fusion, beside the bounds.
+    scratch = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
+                          device=device)
+    hwc_seen = launches_p["seen"]["gather2d_hwc"]
+    fus = dict.fromkeys(("kernel", "plain", "library", "bound"), 0.0)
+    for sig, c in launches_p["fusion_sigs"].items():
+        args = hwc_seen[sig][1]
+        t = time_turns({"kernel": lambda: g2d.gather2d_hwc(*args),
+                        "plain": lambda: plain["gather2d_hwc"](*args),
+                        "library": library_call("gather2d_hwc", args)},
+                       flush=flush)
+        b_ms = bound("gather2d_hwc", args)[0]
+        print(f"gather2d_hwc in fusion: {sig} x{c}: cold ms kernel "
+              f"{t['kernel']:.4f}, library {t['library']:.4f}, plain "
+              f"{t['plain']:.4f}; bound {b_ms:.4f}")
+        for k in ("kernel", "plain", "library"):
+            fus[k] += c * t[k]
+        fus["bound"] += c * b_ms
+    del scratch
+    n_fus = sum(launches_p["fusion_sigs"].values())
+    print(f"gather2d_hwc, fusion's {n_fus} launches: kernel "
+          f"{fus['kernel']:.3f} ms, library {fus['library']:.3f} ms, plain "
+          f"{fus['plain']:.3f} ms, bound {fus['bound']:.3f} ms; fusion "
+          f"{launches_p['fusion_s']:.2f} s")
+    for rec in kernels:
+        if rec["name"] == "gather2d_hwc":
+            rec["fusion"] = {"launches": n_fus,
+                             "shapes": len(launches_p["fusion_sigs"]),
+                             "kernel_ms": fus["kernel"],
+                             "plain_ms": fus["plain"],
+                             "library_ms": fus["library"],
+                             "bound_ms": fus["bound"],
+                             "fusion_s": launches_p["fusion_s"]}
     del launches_p["seen"]
     for rec in kernels:
         name = rec["name"]
@@ -1040,7 +1163,8 @@ def main() -> None:
             "pass A": launches_a[name], "pass B": launches_b[name],
             "pipeline": launches_p["all"][name],
             **{f"pipeline round {i}": n[name]
-               for i, n in enumerate(launches_p["rounds"])}}
+               for i, n in enumerate(launches_p["rounds"])},
+            "pipeline fusion": launches_p["fusion"][name]}
     print(f"script time {time.time() - t_start:.1f} s")
 
     shutil.rmtree(out_dir, ignore_errors=True)

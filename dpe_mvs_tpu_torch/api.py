@@ -47,9 +47,11 @@ def dpe_mvs(
     raises RuntimeError on failure (as the reference bindings do,
     csrc/bindings.cpp:27).
 
+    ``fusion=True`` writes the fused point cloud ``DPE/DPE.ply``;
+    ``viz=True`` the debug images of every sweep and scale.
     ``resume=True`` continues from the last completed iteration.
     ``device``: "cpu" (or any torch device) in place of the card.
-    ``fusion``, ``viz`` and ``parallel`` are not ported yet and raise
+    ``parallel=True`` (several devices) is not ported yet and raises
     NotImplementedError."""
     if parallel:
         raise NotImplementedError(

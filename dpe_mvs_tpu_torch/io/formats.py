@@ -8,8 +8,10 @@ The port's own copy of :mod:`dpe_mvs_tpu.io.formats`:
   - ``*_cam.txt`` camera files (``ReadCamera``, DPE.cpp:341-382);
   - ``pair.txt`` view-selection lists (``GenerateSampleList``,
     main.cpp:264-308);
+  - the fused point cloud, a binary ``.ply`` (``ExportPointCloud``,
+    DPE.cpp:532-572);
   - the ``<dense>/DPE/<%08d>`` result folder of a view.
-Pure numpy. The point-cloud ``.ply`` reader and writer arrive with fusion.
+Pure numpy (the JAX package's native PLY writer is not ported).
 """
 from __future__ import annotations
 
@@ -146,6 +148,54 @@ def write_pair_txt(path: os.PathLike,
         for ref_id, srcs in pairs:
             f.write(f"{ref_id}\n{len(srcs)} ")
             f.write(" ".join(f"{i} {s}" for i, s in srcs) + "\n")
+
+
+_PLY_VERTEX = np.dtype([("xyz", np.float32, 3), ("bgr", np.uint8, 3)])
+
+
+def write_ply(path: os.PathLike, points: np.ndarray,
+              colors_bgr: np.ndarray) -> None:
+    """Binary little-endian PLY with the reference's vertex layout: float
+    xyz, then uchar diffuse_blue/green/red."""
+    points = np.ascontiguousarray(points, np.float32).reshape(-1, 3)
+    colors_bgr = np.ascontiguousarray(colors_bgr, np.uint8).reshape(-1, 3)
+    n = points.shape[0]
+    header = (
+        "ply\n"
+        "format binary_little_endian 1.0\n"
+        f"element vertex {n}\n"
+        "property float x\n"
+        "property float y\n"
+        "property float z\n"
+        "property uchar diffuse_blue\n"
+        "property uchar diffuse_green\n"
+        "property uchar diffuse_red\n"
+        "end_header\n"
+    )
+    rec = np.zeros(n, dtype=_PLY_VERTEX)
+    rec["xyz"] = points
+    rec["bgr"] = colors_bgr
+    with open(path, "wb") as f:
+        f.write(header.encode("ascii"))
+        rec.tofile(f)
+
+
+def read_ply(path: os.PathLike) -> Tuple[np.ndarray, np.ndarray]:
+    """Read a PLY written by :func:`write_ply` (or the reference binary):
+    (points (N, 3) float32, colours (N, 3) uint8 BGR)."""
+    with open(path, "rb") as f:
+        header = b""
+        while not header.endswith(b"end_header\n"):
+            line = f.readline()
+            if not line:
+                raise ValueError(f"{path}: PLY without end_header")
+            header += line
+        n = int([ln for ln in header.decode().splitlines()
+                 if ln.startswith("element vertex")][0].split()[-1])
+        rec = np.fromfile(f, dtype=_PLY_VERTEX, count=n)
+    if rec.shape[0] != n:
+        raise ValueError(f"{path}: {rec.shape[0]} of {n} vertices")
+    return rec["xyz"].copy(), rec["bgr"].copy()
 
 
 def result_folder(dense_folder: os.PathLike, image_id: int) -> Path:

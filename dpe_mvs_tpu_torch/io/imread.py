@@ -1,21 +1,25 @@
-"""Grayscale image reading and PNG writing without OpenCV.
+"""Image reading and writing without OpenCV.
 
-The port's stand-in for ``cv2.imread(path, IMREAD_GRAYSCALE)`` and for the
-``cv2.imwrite`` of the scene images. Like OpenCV it decodes by the file's
-signature, not by its name (a dense folder's ``images/%08d.jpg`` may hold PNG
-bytes):
+The port's stand-in for ``cv2.imread(path, IMREAD_GRAYSCALE)``,
+``cv2.imread(path, IMREAD_COLOR)`` and the ``cv2.imwrite`` of scene, debug
+and converted images. Like OpenCV it decodes by the file's signature, not by
+its name (a dense folder's ``images/%08d.jpg`` may hold PNG bytes):
 
   - PNG: 8-bit gray, RGB or RGBA, non-interlaced, decoded with
     ``zlib`` and numpy (all five row filters);
   - binary PGM / PPM (``P5`` / ``P6``), 8-bit;
-  - JPEG: through Pillow, imported only when a JPEG is met, decoded
-    straight to gray (libjpeg's luma output, as OpenCV asks for it).
+  - JPEG: through Pillow, imported only when a JPEG is met (gray straight
+    from libjpeg's luma output, as OpenCV asks for it).
 
-Colour goes to gray as OpenCV's own decoders take it there: a PNG by
+Gray reads take colour to gray as OpenCV's own decoders do: a PNG by
 libpng's ``png_set_rgb_to_gray(0.299, 0.587)``, ``(R*9797 + G*19234 +
 B*3737) >> 15``; a PPM by OpenCV's fixed-point ``BGR2GRAY``, ``(R*4899 +
-G*9617 + B*1868 + 8192) >> 14``. Alpha is dropped. Any other format raises
+G*9617 + B*1868 + 8192) >> 14``. Colour reads give BGR: a gray image's
+one channel three times, alpha dropped. Any other format raises
 ``ValueError`` naming it; nothing falls back silently.
+
+Writers: PNG (gray or BGR, filter 0 on every row) and JPEG at OpenCV's
+default quality 95 through Pillow.
 """
 from __future__ import annotations
 
@@ -61,6 +65,7 @@ def _paeth_row(line: bytearray, prev: bytes, bpp: int,
 
 
 def _decode_png(data: bytes, path) -> np.ndarray:
+    """The PNG's samples, (H, W, 1 | 3 | 4) uint8."""
     pos = len(_PNG_SIG)
     ihdr = None
     idat = []
@@ -108,9 +113,7 @@ def _decode_png(data: bytes, path) -> np.ndarray:
             raise ValueError(f"{path}: PNG row filter {kind}")
         out[y] = cur
         prev = out[y]
-    if bpp == 1:
-        return out
-    return _gray_png(out.reshape(H, W, bpp)[..., :3])
+    return out.reshape(H, W, bpp)
 
 
 def _pnm_tokens(data: bytes, n: int):
@@ -134,42 +137,68 @@ def _pnm_tokens(data: bytes, n: int):
 
 
 def _decode_pnm(data: bytes, path) -> np.ndarray:
+    """The PGM's or PPM's samples, (H, W, 1 | 3) uint8."""
     (magic, w, h, maxval), pos = _pnm_tokens(data, 4)
     W, H, maxval = int(w), int(h), int(maxval)
     if maxval > 255:
         raise ValueError(f"{path}: 16-bit PNM (maxval {maxval})")
     ch = 1 if magic == b"P5" else 3
     px = np.frombuffer(data, np.uint8, count=W * H * ch, offset=pos)
-    if ch == 1:
-        return px.reshape(H, W).copy()
-    return _gray_cv(px.reshape(H, W, 3))
+    return px.reshape(H, W, ch).copy()
 
 
-def _decode_jpeg(path) -> np.ndarray:
+def _pillow(path, action: str):
     try:
         from PIL import Image
     except ImportError as e:
-        raise ImportError(f"{path} is a JPEG: reading it needs Pillow "
-                          "(the PIL package), which is not installed") from e
+        raise ImportError(f"{path}: {action} a JPEG needs Pillow (the PIL "
+                          "package), which is not installed") from e
+    return Image
+
+
+def _decode_jpeg(path, color: bool) -> np.ndarray:
+    """Gray (H, W) or BGR (H, W, 3) uint8 from a JPEG, through Pillow."""
+    Image = _pillow(path, "reading")
     with Image.open(path) as im:
-        im.draft("L", im.size)
-        return np.asarray(im.convert("L"), np.uint8).copy()
+        if not color:
+            im.draft("L", im.size)
+            return np.asarray(im.convert("L"), np.uint8).copy()
+        if im.mode == "L":
+            return np.repeat(np.asarray(im, np.uint8)[..., None], 3, axis=2)
+        return np.ascontiguousarray(
+            np.asarray(im.convert("RGB"), np.uint8)[..., ::-1])
+
+
+def _read(path, color: bool) -> np.ndarray:
+    with open(path, "rb") as f:
+        data = f.read()
+    if data.startswith(_PNG_SIG):
+        px, gray = _decode_png(data, path), _gray_png
+    elif data[:2] in (b"P5", b"P6"):
+        px, gray = _decode_pnm(data, path), _gray_cv
+    elif data.startswith(b"\xff\xd8\xff"):
+        return _decode_jpeg(path, color)
+    else:
+        raise ValueError(f"{path}: not a PNG, binary PGM/PPM or JPEG file "
+                         f"(starts with {data[:8]!r})")
+    if px.shape[2] == 1:
+        return np.repeat(px, 3, axis=2) if color else px[..., 0].copy()
+    rgb = px[..., :3]
+    return np.ascontiguousarray(rgb[..., ::-1]) if color else gray(rgb)
 
 
 def read_gray_u8(path: os.PathLike) -> np.ndarray:
     """The image at ``path`` as (H, W) uint8 gray, decoded by its
     signature. Raises FileNotFoundError if it is missing and ValueError for
     a format it does not read."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if data.startswith(_PNG_SIG):
-        return _decode_png(data, path)
-    if data[:2] in (b"P5", b"P6"):
-        return _decode_pnm(data, path)
-    if data.startswith(b"\xff\xd8\xff"):
-        return _decode_jpeg(path)
-    raise ValueError(f"{path}: not a PNG, binary PGM/PPM or JPEG file "
-                     f"(starts with {data[:8]!r})")
+    return _read(path, color=False)
+
+
+def read_color_u8(path: os.PathLike) -> np.ndarray:
+    """The image at ``path`` as (H, W, 3) uint8 BGR, as ``cv2.imread(path,
+    IMREAD_COLOR)`` gives it: gray replicated to three channels, alpha
+    dropped. Raises as :func:`read_gray_u8` does."""
+    return _read(path, color=True)
 
 
 def read_gray(path: os.PathLike) -> np.ndarray:
@@ -182,18 +211,47 @@ def _png_chunk(kind: bytes, body: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
 
+def _write_png(path, rows: np.ndarray, ctype: int) -> None:
+    """An 8-bit PNG of colour type ``ctype`` from (H, W * samples) uint8
+    rows: one IDAT, every row with filter 0."""
+    H, stride = rows.shape
+    W = stride // {0: 1, 2: 3}[ctype]
+    raw = np.concatenate([np.zeros((H, 1), np.uint8), rows], axis=1)
+    with open(path, "wb") as f:
+        f.write(_PNG_SIG
+                + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, ctype,
+                                                  0, 0, 0))
+                + _png_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+                + _png_chunk(b"IEND", b""))
+
+
 def write_png_gray(path: os.PathLike, img: np.ndarray) -> None:
-    """Write an (H, W) uint8 image as an 8-bit gray PNG: one IDAT, every
-    row with filter 0."""
+    """Write an (H, W) uint8 image as an 8-bit gray PNG."""
     img = np.ascontiguousarray(img)
     if img.dtype != np.uint8 or img.ndim != 2:
         raise ValueError(f"write_png_gray takes (H, W) uint8, got "
                          f"{img.dtype} {img.shape}")
-    H, W = img.shape
-    raw = np.concatenate([np.zeros((H, 1), np.uint8), img], axis=1)
-    with open(path, "wb") as f:
-        f.write(_PNG_SIG
-                + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 0, 0,
-                                                  0, 0))
-                + _png_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
-                + _png_chunk(b"IEND", b""))
+    _write_png(path, img, 0)
+
+
+def _bgr(img: np.ndarray, name: str) -> np.ndarray:
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"{name} takes (H, W, 3) uint8 BGR, got "
+                         f"{img.dtype} {img.shape}")
+    return np.ascontiguousarray(img[..., ::-1])
+
+
+def write_png_color(path: os.PathLike, img: np.ndarray) -> None:
+    """Write an (H, W, 3) uint8 BGR image (OpenCV's order) as an 8-bit RGB
+    PNG."""
+    rgb = _bgr(img, "write_png_color")
+    _write_png(path, rgb.reshape(rgb.shape[0], -1), 2)
+
+
+def write_jpeg_color(path: os.PathLike, img: np.ndarray) -> None:
+    """Write an (H, W, 3) uint8 BGR image as a baseline JPEG through Pillow,
+    at ``cv2.imwrite``'s default quality, 95 (4:2:0 chroma, as OpenCV's
+    default)."""
+    rgb = _bgr(img, "write_jpeg_color")
+    Image = _pillow(path, "writing")
+    Image.fromarray(rgb, "RGB").save(path, "JPEG", quality=95)

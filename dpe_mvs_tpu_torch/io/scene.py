@@ -88,6 +88,15 @@ def load_image_gray(dense_folder, image_id: int) -> Optional[np.ndarray]:
     return imread.read_gray(path)
 
 
+def load_image_color(dense_folder, image_id: int) -> Optional[np.ndarray]:
+    """BGR uint8 (H, W, 3) image (fusion reads colour, DPE.cpp:1253); None
+    if the file does not exist."""
+    path = image_path(dense_folder, image_id)
+    if not path.is_file():
+        return None
+    return imread.read_color_u8(path)
+
+
 def load_camera(dense_folder, image_id: int) -> CameraData:
     K, R, t, dmin, dmax = formats.read_cam_txt(cam_path(dense_folder,
                                                         image_id))

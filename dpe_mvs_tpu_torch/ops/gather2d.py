@@ -207,13 +207,16 @@ def _check(name: str, img: torch.Tensor, *idx: torch.Tensor) -> bool:
     return True
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _raise_on(name: str, err: int) -> None:
+def _launch(name: str, t: torch.Tensor, *args) -> None:
+    """Call the C entry ``dpe_<name>(*args, stream)`` on ``t``'s card, made
+    current for the launch (CUDA refuses a launch into a stream of a card
+    that is not the current one), and count it."""
+    with torch.cuda.device(t.device):
+        err = getattr(_load(), "dpe_" + name)(
+            *args, torch.cuda.current_stream(t.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed, cudaError_t {err}")
+    LAUNCHES[name] += 1
 
 
 def gather2d(imgs: torch.Tensor, iy: torch.Tensor,
@@ -242,10 +245,9 @@ def gather2d(imgs: torch.Tensor, iy: torch.Tensor,
     out = torch.empty((C, Qh, Qw), dtype=imgs.dtype, device=imgs.device)
     if C and Qh and Qw:
         p = tile_plan(Qh, Qw, iy.data_ptr(), ix.data_ptr())
-        _raise_on("gather2d", _load().dpe_gather2d(
-            imgs.data_ptr(), iy.data_ptr(), ix.data_ptr(), out.data_ptr(),
-            C, H, W, Qh, Qw, int(p.vec), p.tiles, p.tiles_x, _stream(imgs)))
-        LAUNCHES["gather2d"] += 1
+        _launch("gather2d", imgs, imgs.data_ptr(), iy.data_ptr(),
+                ix.data_ptr(), out.data_ptr(), C, H, W, Qh, Qw, int(p.vec),
+                p.tiles, p.tiles_x)
     return out[0] if squeeze else out
 
 
@@ -276,10 +278,9 @@ def gather2d_hwc(img: torch.Tensor, iy: torch.Tensor,
     if Q and C:
         p = hwc_plan(C * es, img.data_ptr(), s_h, s_w, out.data_ptr(), Q,
                      iy.data_ptr(), ix.data_ptr())
-        _raise_on("gather2d_hwc", _load().dpe_gather2d_hwc(
-            img.data_ptr(), iy.data_ptr(), ix.data_ptr(), out.data_ptr(), H,
-            W, s_h, s_w, Q, p.unit, p.upq, int(p.vec), _stream(img)))
-        LAUNCHES["gather2d_hwc"] += 1
+        _launch("gather2d_hwc", img, img.data_ptr(), iy.data_ptr(),
+                ix.data_ptr(), out.data_ptr(), H, W, s_h, s_w, Q, p.unit,
+                p.upq, int(p.vec))
     return out
 
 
@@ -313,8 +314,7 @@ def gather2d_pick(imgs: torch.Tensor, ic: torch.Tensor, iy: torch.Tensor,
     if Q:
         vec = index_vec(Q, ic.data_ptr(), iy.data_ptr(), ix.data_ptr(),
                         out.data_ptr())
-        _raise_on("gather2d_pick", _load().dpe_gather2d_pick(
-            imgs.data_ptr(), ic.data_ptr(), iy.data_ptr(), ix.data_ptr(),
-            out.data_ptr(), C, H, W, Q, int(vec), _stream(imgs)))
-        LAUNCHES["gather2d_pick"] += 1
+        _launch("gather2d_pick", imgs, imgs.data_ptr(), ic.data_ptr(),
+                iy.data_ptr(), ix.data_ptr(), out.data_ptr(), C, H, W, Q,
+                int(vec))
     return out

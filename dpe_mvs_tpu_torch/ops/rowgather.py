@@ -141,13 +141,16 @@ def _launch(name: str, img, idx, staged: Optional[bool] = None):
     L = idx.shape[1]
     if W >= 2 ** 31 or L >= 2 ** 31:
         raise ValueError(f"{name}: row too long ({W}, {L})")
-    out = torch.empty(idx.shape, dtype=img.dtype, device=img.device)
-    p = launch_plan(H, W, L, img.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                    _n_sm(img.device.index), staged)
-    stream = torch.cuda.current_stream(img.device).cuda_stream
-    err = getattr(_load(), "dpe_" + name)(
-        img.data_ptr(), idx.data_ptr(), out.data_ptr(), H, W, L, int(p.vec),
-        int(p.staged), p.grid, p.smem, stream)
+    # The tensors' card is made current for the launch: CUDA refuses a
+    # launch into a stream of a card that is not the current one.
+    with torch.cuda.device(img.device):
+        out = torch.empty(idx.shape, dtype=img.dtype, device=img.device)
+        p = launch_plan(H, W, L, img.data_ptr(), idx.data_ptr(),
+                        out.data_ptr(), _n_sm(img.device.index), staged)
+        stream = torch.cuda.current_stream(img.device).cuda_stream
+        err = getattr(_load(), "dpe_" + name)(
+            img.data_ptr(), idx.data_ptr(), out.data_ptr(), H, W, L,
+            int(p.vec), int(p.staged), p.grid, p.smem, stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed, cudaError_t {err}")
     LAUNCHES[name] += 1

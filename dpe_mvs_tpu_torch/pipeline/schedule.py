@@ -32,8 +32,10 @@ from ..engine import rectcost
 from ..engine import state as state_mod
 from ..engine.stages import run_sweep_staged
 from ..geometry import rectify
-from ..io import formats, scene
+from ..io import formats, imread, scene
+from ..utils import viz as viz_mod
 from ..utils.profiling import GLOBAL_TIMER
+from . import fusion as fusion_mod
 from ..utils.rng import TorchKey
 
 # Host-side rectification data keyed by (scene, view, size, v_pad, frame):
@@ -120,7 +122,9 @@ def get_problem_edges(problem: scene.Problem, scale_size: int,
     """Compute and cache the scale's edge and label maps
     (``GetProblemEdges``, main.cpp:331-388): ``edges_<s>.dmb`` (uint8 {0,
     255}, fine edges of the image resized to the scale) and
-    ``labels_<s>.dmb`` (int32 coarse labels)."""
+    ``labels_<s>.dmb`` (int32 coarse labels). With the problem's
+    ``show_medium_result``, also their images ``rawedge_<s>.jpg`` and
+    ``connect_<s>.jpg`` (PNG bytes)."""
     scale = scale_index(scale_size)
     rf = problem.result_folder
     img = scene.load_image_gray(problem.dense_folder, problem.ref_image_id)
@@ -129,12 +133,17 @@ def get_problem_edges(problem: scene.Problem, scale_size: int,
         cols, rows = scene.scaled_size(img.shape[1], img.shape[0],
                                        scale_size)
         scaled = scene.resize_linear(img, cols, rows).astype(np.uint8)
-        formats.write_dmb(edge_path,
-                          dual_level.fine_edges(scaled, params.high_res_img))
+        edge = dual_level.fine_edges(scaled, params.high_res_img)
+        formats.write_dmb(edge_path, edge)
+        if problem.show_medium_result:
+            imread.write_png_gray(rf / f"rawedge_{scale}.jpg", edge)
     label_path = rf / f"labels_{scale}.dmb"
     if not label_path.exists():
-        formats.write_dmb(label_path, dual_level.coarse_labels(
-            img.astype(np.uint8), scale, params.high_res_img))
+        label = dual_level.coarse_labels(img.astype(np.uint8), scale,
+                                         params.high_res_img)
+        formats.write_dmb(label_path, label)
+        if problem.show_medium_result:
+            viz_mod.save_label_map(rf / f"connect_{scale}.jpg", label)
 
 
 def load_support_maps(problem, scale_size: int, max_scale: int,
@@ -165,8 +174,9 @@ def process_problem(problem, params: PatchMatchParams, scale_size: int,
     Returns the final PMState; the results go to ``problem.result_folder``.
 
     ``problem``: a ``scene.Problem`` (anything with ``dense_folder``,
-    ``result_folder``, ``ref_image_id`` and ``iteration`` when inputs and
-    maps are given; ``src_image_ids`` too when they are loaded).
+    ``result_folder``, ``ref_image_id``, ``iteration`` and
+    ``show_medium_result`` when inputs and maps are given; ``src_image_ids``
+    too when they are loaded).
     ``scale_size`` / ``max_scale``: the round's scale and the coarsest
     round's scale index; they select the images' size and the edge and
     label maps. ``device``: where every tensor of the sweep lives (the card
@@ -177,7 +187,9 @@ def process_problem(problem, params: PatchMatchParams, scale_size: int,
     (:func:`load_support_maps`) when None. ``rect_frame``: optional common
     (wp, hp) rect frame. ``timer``: optional callable ``timer(name)``
     returning a context manager, wrapped around the load, rectify,
-    src-depth rectify, writeback and every sweep stage."""
+    src-depth rectify, writeback and every sweep stage. With the problem's
+    ``show_medium_result``, the written maps also go to ``depth_<it>.jpg``,
+    ``normal_<it>.jpg`` and ``weak_<it>.jpg`` (PNG bytes)."""
     device = resolve_device(device)
     span = timer if timer is not None else (lambda name: nullcontext())
     t0 = time.time()
@@ -225,6 +237,12 @@ def process_problem(problem, params: PatchMatchParams, scale_size: int,
         formats.write_dmb(rf / "weak.bin", weak.astype(np.uint8))
         formats.write_dmb(rf / "selected_views.bin",
                           st.selected.cpu().numpy().astype(np.int32))
+    if problem.show_medium_result:
+        it = problem.iteration
+        viz_mod.save_depth_map(rf / f"depth_{it}.jpg", depth,
+                               inputs.depth_min, inputs.depth_max)
+        viz_mod.save_normal_map(rf / f"normal_{it}.jpg", normal)
+        viz_mod.save_weak_map(rf / f"weak_{it}.jpg", weak)
     if verbose:
         print(f"  image {problem.ref_image_id:08d} iter {problem.iteration} "
               f"({inputs.width}x{inputs.height}) done in "
@@ -308,12 +326,12 @@ def run_pipeline(dense_folder, *, verbose: bool = True, fusion: bool = False,
     success, 1 if the images are missing or differ in size. With
     ``resume=True``, iterations recorded as complete in
     ``DPE/progress.json`` are skipped (their state is in the per-view .dmb
-    files). Stage times go to ``utils.profiling.GLOBAL_TIMER``, spans on a
-    card timed by CUDA events (the host is never blocked for them)."""
-    if fusion or viz:
-        raise NotImplementedError(
-            "fusion=True and viz=True are not ported yet: fusion and the "
-            "image writers arrive with slice 4")
+    files). ``fusion=True`` fuses the final depth maps into
+    ``DPE/DPE.ply`` (:func:`.fusion.run_fusion`, on ``device``);
+    ``viz=True`` writes the debug images of every sweep and scale
+    (:mod:`..utils.viz`). Stage times go to ``utils.profiling.GLOBAL_TIMER``
+    (fusion as the span ``fusion``), spans on a card timed by CUDA events
+    (the host is never blocked for them)."""
     device = resolve_device(device)
     cfg = cfg or EngineConfig()
     dense_folder = Path(dense_folder)
@@ -398,6 +416,10 @@ def run_pipeline(dense_folder, *, verbose: bool = True, fusion: bool = False,
 
     for p in problems:
         export_npy(p, depth=depth, normal=normal, weak=weak, edge=edge)
+    if fusion:
+        with span("fusion"):
+            fusion_mod.run_fusion(dense_folder, problems, verbose=verbose,
+                                  device=device)
     if not keep_intermediates:
         cleanup_intermediates(problems, round_num)
     if verbose:

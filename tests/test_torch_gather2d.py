@@ -342,6 +342,81 @@ def test_cpu_path_launches_nothing():
                            "gather2d_pick": 0}
 
 
+class _DeviceGuard:
+    """Stands in for ``torch.cuda.device``: records the devices entered and
+    which are current while a fake kernel library is called."""
+
+    def __init__(self):
+        self.entered, self.current, self.calls = [], [], []
+
+    def __call__(self, device):
+        guard = self
+
+        class Ctx:
+            def __enter__(self):
+                guard.entered.append(device)
+                guard.current.append(device)
+
+            def __exit__(self, *exc):
+                guard.current.pop()
+        return Ctx()
+
+    def library(self):
+        guard = self
+
+        class Lib:
+            def __getattr__(self, name):
+                def launch(*args):
+                    guard.calls.append((name, list(guard.current)))
+                    return 0
+                return launch
+        return Lib()
+
+
+@pytest.mark.parametrize("entry", ["row_gather", "bilinear_x", "gather2d",
+                                   "gather2d_hwc", "gather2d_pick"])
+def test_launch_enters_the_tensors_device(entry, monkeypatch):
+    """Every kernel launch runs with its tensors' card current (CUDA refuses
+    a launch into a stream of a card that is not the current one): the
+    guard, ``torch.cuda.device``, is mocked and the launch path driven with
+    CPU tensors and a fake kernel library."""
+    from dpe_mvs_tpu_torch.ops import rowgather as trg
+    guard = _DeviceGuard()
+    monkeypatch.setattr(torch.cuda, "device", guard)
+
+    class Stream:
+        cuda_stream = 0
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None: Stream)
+    monkeypatch.setattr(tg, "_load", guard.library)
+    monkeypatch.setattr(trg, "_load", guard.library)
+    monkeypatch.setattr(trg, "_n_sm", lambda index: 132)
+    check = tg._check
+
+    def launch_on_cpu(*args):
+        check(*args)                 # the wrapper's own checks still run
+        return True
+    monkeypatch.setattr(tg, "_check", launch_on_cpu)
+    tg.reset_launches()
+    trg.reset_launches()
+    q = torch.zeros(4, 8, dtype=torch.int32)
+    img = torch.zeros(2, 6, 7)
+    if entry == "row_gather":
+        trg._launch(entry, img[0], torch.zeros(6, 8, dtype=torch.int32))
+    elif entry == "bilinear_x":
+        trg._launch(entry, img[0], torch.zeros(6, 8))
+    elif entry == "gather2d":
+        tg.gather2d(img, q, q)
+    elif entry == "gather2d_hwc":
+        img = img.permute(1, 2, 0).contiguous()
+        tg.gather2d_hwc(img, q, q)
+    else:
+        tg.gather2d_pick(img, q.long(), q, q)
+    assert guard.entered == [img.device]
+    assert guard.calls == [("dpe_" + entry, [img.device])]
+    launches = {**tg.LAUNCHES, **trg.LAUNCHES}
+    assert launches == {k: int(k == entry) for k in launches}
+
+
 # --------------------------------------------------------------------------
 # GPU tier
 # --------------------------------------------------------------------------

@@ -1,9 +1,11 @@
 """The PyTorch port stands alone: importing every module of
-``dpe_mvs_tpu_torch`` (among them ``api`` and ``cli``) and ``chip_smoke``
+``dpe_mvs_tpu_torch`` (among them ``api``, ``cli``, ``pipeline.fusion``,
+``utils.viz`` and ``io.colmap``), ``chip_smoke`` and ``tools/torch_eval``
 loads neither ``jax``, nor any module of the JAX package ``dpe_mvs_tpu``,
 nor ``cv2`` (the machine with the card has none of them), and neither does
-reading a PNG scene image through ``io/imread``. Checked in a fresh
-interpreter, outside this suite's conftest (which imports jax)."""
+reading and writing PNG images through ``io/imread``; Pillow (``PIL``) is
+not loaded either, as only a JPEG needs it. Checked in a fresh interpreter,
+outside this suite's conftest (which imports jax)."""
 import subprocess
 import sys
 from pathlib import Path
@@ -20,15 +22,17 @@ names = [m.name for m in pkgutil.walk_packages(dpe_mvs_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import tools.torch_eval
 from dpe_mvs_tpu_torch.io import imread
 path = Path(tempfile.mkdtemp()) / '00000000.jpg'
 img = np.arange(35, dtype=np.uint8).reshape(5, 7)
 imread.write_png_gray(path, img)
 assert (imread.read_gray(path) == img).all()
+bgr = np.arange(105, dtype=np.uint8).reshape(5, 7, 3)
+imread.write_png_color(path, bgr)
+assert (imread.read_color_u8(path) == bgr).all()
 bad = sorted(m for m in sys.modules
-             if m == 'jax' or m.startswith('jax.') or m == 'dpe_mvs_tpu'
-             or m.startswith('dpe_mvs_tpu.') or m == 'cv2'
-             or m.startswith('cv2.'))
+             if m.split('.')[0] in ('jax', 'dpe_mvs_tpu', 'cv2', 'PIL'))
 print(len(names), 'modules;', 'loaded:', bad)
 print(' '.join(names))
 sys.exit(1 if bad else 0)
@@ -43,14 +47,15 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert n >= 33, res.stdout          # every module of the port was seen
     names = res.stdout.splitlines()[1].split()
     for mod in ("api", "cli", "edges.dual_level", "edges.imgproc",
-                "io.imread", "io.scene", "utils.profiling"):
+                "io.imread", "io.scene", "utils.profiling",
+                "pipeline.fusion", "utils.viz", "io.colmap"):
         assert f"dpe_mvs_tpu_torch.{mod}" in names
 
 
 def test_port_sources_never_import_cv2():
     """Not even lazily, on any path."""
     for path in [*sorted((ROOT / "dpe_mvs_tpu_torch").rglob("*.py")),
-                 ROOT / "chip_smoke.py"]:
+                 ROOT / "chip_smoke.py", ROOT / "tools" / "torch_eval.py"]:
         for line in path.read_text().splitlines():
             words = line.split()
             assert not (words[:2] == ["import", "cv2"]

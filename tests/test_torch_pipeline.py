@@ -1,13 +1,17 @@
 """The PyTorch port's pipeline (round loop, API, CLI) against the JAX
 package's.
 
-  * The port's ``run_pipeline`` on a 64x48x3 ``write_scene_folder`` scene,
-    2 rounds (8 iterations, 24 sweeps) on the CPU: ``depth.npy`` meets the
-    rect-engine bar of ``tests/test_pipeline.py`` (median relative error <
-    0.03, valid > 0.4); the edge and label maps it left equal JAX
-    ``get_problem_edges`` on the same folder (labels as a partition); JAX
-    ``export_npy`` on its state gives its ``.npy`` files byte for byte; its
-    cleanup leaves the files the JAX rule leaves.
+  * The port's ``dpe_mvs`` with every output on (fusion, viz, the four
+    exports) on a 64x48x3 ``write_scene_folder`` scene, 2 rounds (8
+    iterations, 24 sweeps) on the CPU: ``depth.npy`` meets the rect-engine
+    bar of ``tests/test_pipeline.py`` (median relative error < 0.03, valid >
+    0.4); ``DPE/DPE.ply`` meets its F-score floor (> 150 points, P > 0.8,
+    F > 0.4 at tau = 0.05 x depth, through ``tools/torch_eval``); the debug
+    images of every sweep and scale exist; the edge and label maps it left
+    equal JAX ``get_problem_edges`` on the same folder (labels as a
+    partition); JAX ``export_npy`` on its state gives its ``.npy`` files
+    byte for byte; its cleanup leaves the files the JAX rule leaves. (The
+    state is copied just before the cleanup.)
   * Round-loop parity without sweeps: both packages' ``run_pipeline`` on
     the same folder, each with ``process_problem`` stubbed (the stub writes
     a constant plane's state files so later passes load), make the same
@@ -22,13 +26,16 @@ package's.
     without blocking the host).
   * ``dpe_mvs`` and the CLI: the JAX positional signature and defaults,
     usage error, RuntimeError for a missing folder, a corrupt camera file
-    and a missing image; fusion, viz and parallel raise
-    NotImplementedError.
+    and a missing image; the CLI's viz and fusion flags reach
+    ``run_pipeline``; parallel raises NotImplementedError, and without a
+    card the default device raises.
 """
 import dataclasses
 import inspect
 import shutil
+import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -39,6 +46,7 @@ from dpe_mvs_tpu_torch import api as tapi
 from dpe_mvs_tpu_torch import cli as tcli
 from dpe_mvs_tpu_torch.config import EngineConfig as TEngineConfig
 from dpe_mvs_tpu_torch.io import formats as tformats
+from dpe_mvs_tpu_torch.io import imread
 from dpe_mvs_tpu_torch.io import scene as tscene
 from dpe_mvs_tpu_torch.pipeline import schedule as tschedule
 from dpe_mvs_tpu_torch.utils import synthetic as tsynth
@@ -55,15 +63,29 @@ def _folder(path, width=W, height=H, views=VIEWS, seed=SEED):
 
 @pytest.fixture(scope="module")
 def port_run(tmp_path_factory):
-    sc, folder = _folder(tmp_path_factory.mktemp("torch_pipeline") / "s")
-    ret = tschedule.run_pipeline(folder, verbose=False, depth=True,
-                                 normal=True, weak=True, edge=True,
-                                 keep_intermediates=True, device="cpu")
-    return sc, folder, ret
+    """``dpe_mvs`` with fusion, viz and every export, on the CPU. Returns
+    the scene, a copy of the folder made just before the cleanup (the state
+    files), the return code and the folder as the run left it."""
+    root = tmp_path_factory.mktemp("torch_pipeline")
+    sc, folder = _folder(root / "s")
+    kept = root / "kept"
+    cleanup = tschedule.cleanup_intermediates
+
+    def copy_then_cleanup(problems, round_num):
+        shutil.copytree(folder, kept)
+        cleanup(problems, round_num)
+    mp = pytest.MonkeyPatch()
+    mp.setattr(tschedule, "cleanup_intermediates", copy_then_cleanup)
+    try:
+        ret = tapi.dpe_mvs(str(folder), 0, False, True, True, True, True,
+                           True, True, device="cpu")
+    finally:
+        mp.undo()
+    return sc, kept, ret, folder
 
 
 def test_pipeline_depth_meets_bar(port_run):
-    sc, folder, ret = port_run
+    sc, folder, ret, _ = port_run
     assert ret == 0
     for v in range(VIEWS):
         rf = folder / "DPE" / f"{v:08d}"
@@ -84,12 +106,44 @@ def test_pipeline_depth_meets_bar(port_run):
                                  "weak.npy"))) <= {0, 1, 2}
 
 
+def test_fscore_floor(port_run):
+    """The fused cloud against the scene's analytic surface (the floor of
+    ``tests/test_pipeline.py::test_fscore_floor``; tau scaled to the
+    64-px-wide scene)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from tools.torch_eval import depth_scale, evaluate_scene
+    sc, _, _, folder = port_run
+    rep = evaluate_scene(sc, folder, tau=0.05 * depth_scale(sc))
+    assert rep["cloud"]["cloud_points"] > 150, rep["cloud"]
+    assert rep["cloud"]["precision"] > 0.8, rep["cloud"]
+    assert rep["cloud"]["fscore"] > 0.4, rep["cloud"]
+    assert rep["depth_median_rel_err"] < 0.03, rep
+
+
+def test_viz_files_written(port_run):
+    """The debug images of every sweep (maps at the round's size) and of
+    every scale's edge and label maps, readable as images."""
+    _, _, _, folder = port_run
+    for v in range(VIEWS):
+        rf = folder / "DPE" / f"{v:08d}"
+        for it in range(8):
+            size = (H // 2, W // 2) if it < 4 else (H, W)
+            for name in ("depth", "normal", "weak"):
+                img = imread.read_color_u8(rf / f"{name}_{it}.jpg")
+                assert img.shape == size + (3,), (v, it, name)
+        for s, size in ((1, (H // 2, W // 2)), (0, (H, W))):
+            assert imread.read_gray_u8(rf / f"rawedge_{s}.jpg").shape == \
+                size
+            assert imread.read_color_u8(rf / f"connect_{s}.jpg").shape == \
+                size + (3,)
+
+
 def test_edge_and_label_maps_equal_jax(port_run, tmp_path):
     from dpe_mvs_tpu.config import PatchMatchParams
     from dpe_mvs_tpu.io import formats as jformats
     from dpe_mvs_tpu.io import scene as jscene
     from dpe_mvs_tpu.pipeline import schedule as jschedule
-    _, folder, _ = port_run
+    _, folder, _, _ = port_run
     copy = tmp_path / "jax"
     shutil.copytree(folder, copy, ignore=shutil.ignore_patterns("DPE"))
     for p in jscene.generate_sample_list(copy):
@@ -112,7 +166,7 @@ def test_edge_and_label_maps_equal_jax(port_run, tmp_path):
 def test_jax_export_reads_port_state(port_run):
     from dpe_mvs_tpu.io import scene as jscene
     from dpe_mvs_tpu.pipeline import schedule as jschedule
-    _, folder, _ = port_run
+    _, folder, _, _ = port_run
     names = ("depth.npy", "normal.npy", "weak.npy", "edge.npy")
     for p in jscene.generate_sample_list(folder):
         ours = {n: (p.result_folder / n).read_bytes() for n in names}
@@ -125,7 +179,7 @@ def test_jax_export_reads_port_state(port_run):
 def test_cleanup_leaves_what_jax_leaves(port_run, tmp_path):
     from dpe_mvs_tpu.io import scene as jscene
     from dpe_mvs_tpu.pipeline import schedule as jschedule
-    _, folder, _ = port_run
+    _, folder, _, run_folder = port_run
     assert (folder / "DPE" / "progress.json").exists()
     a, b = tmp_path / "a", tmp_path / "b"
     shutil.copytree(folder, a)
@@ -136,11 +190,15 @@ def test_cleanup_leaves_what_jax_leaves(port_run, tmp_path):
     def files(root):
         return sorted(str(p.relative_to(root)) for p in root.rglob("*")
                       if p.is_file())
-    assert files(a) == files(b)
+    assert files(a) == files(b) == files(run_folder)
     left = [f for f in files(a) if f.startswith("DPE")]
+    debug = [f"{n}_{it}.jpg" for n in ("depth", "normal", "weak")
+             for it in range(8)] + [f"{n}_{s}.jpg" for n in
+                                    ("rawedge", "connect") for s in (0, 1)]
     assert sorted(left) == sorted(
-        f"DPE/{v:08d}/{n}" for v in range(VIEWS)
-        for n in ("depth.npy", "normal.npy", "weak.npy", "edge.npy"))
+        ["DPE/DPE.ply"] + [f"DPE/{v:08d}/{n}" for v in range(VIEWS)
+                           for n in ["depth.npy", "normal.npy", "weak.npy",
+                                     "edge.npy"] + debug])
 
 
 def _plane_stub(calls):
@@ -308,11 +366,30 @@ def test_api_errors_are_runtime_errors(tmp_path):
         tapi.dpe_mvs(str(b), device="cpu")
 
 
+def test_cli_flags_reach_run_pipeline(tmp_path, monkeypatch):
+    calls = []
+    monkeypatch.setattr(tschedule, "run_pipeline",
+                        lambda folder, **kw: calls.append(kw) or 0)
+    monkeypatch.setattr(tapi, "_device",
+                        lambda gpu_index, device: torch.device("cpu"))
+    assert tcli.main([str(tmp_path), "0", "0", "1", "1"]) == 0
+    assert tcli.main([str(tmp_path), "0", "1", "0", "1", "0", "1", "0",
+                      "1"]) == 0
+    assert tcli.main([str(tmp_path)]) == 0
+    want = [dict(verbose=False, fusion=True, viz=True, depth=True,
+                 normal=False, weak=False, edge=False),
+            dict(verbose=True, fusion=True, viz=False, depth=False,
+                 normal=True, weak=False, edge=True),
+            dict(verbose=True, fusion=False, viz=False, depth=True,
+                 normal=False, weak=False, edge=False)]
+    assert len(calls) == 3
+    for kw, w in zip(calls, want):
+        assert {k: kw[k] for k in w} == w
+        assert kw["device"] == torch.device("cpu")
+
+
 def test_unported_options_raise(tmp_path):
     _, folder = _folder(tmp_path / "s", width=48, height=36)
-    for kw in ({"fusion": True}, {"viz": True}):
-        with pytest.raises(NotImplementedError, match="slice 4"):
-            tapi.dpe_mvs(str(folder), device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="slice 6"):
         tapi.dpe_mvs(str(folder), device="cpu", parallel=True)
     if not torch.cuda.is_available():        # the card is the default

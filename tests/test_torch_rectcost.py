@@ -224,3 +224,68 @@ def test_finish_classify_refine_stages(scene):
     moved = ref != noisy[..., 3]
     assert moved.mean() > 0.05
     assert np.isclose(out.numpy(), ref, rtol=1e-4, atol=0).mean() >= 0.98
+
+
+def test_static_warps_equal_jax_stacked_warps(tmp_path):
+    """The pipeline's static warps in a round's common rect frame
+    (``pipeline/schedule._rect_host``) against the JAX pipeline's stacked
+    warps there (square-padded fields with runtime transpose flags), for two
+    problems of one round: every warped image, mask and source-depth field
+    and the backward warps, bit for bit against JAX run op by op. (Compiled
+    JAX contracts the bilinear lerps into FMAs: images within the rtol 1e-5
+    of ``test_build_rect_views``.)"""
+    from dpe_mvs_tpu_torch.io import scene as tscene
+    from dpe_mvs_tpu_torch.pipeline import schedule as tschedule
+    from dpe_mvs_tpu_torch.utils import synthetic as tsynth
+    sc = tsynth.make_plane_scene(width=64, height=48, num_views=4, seed=4)
+    folder = tsynth.write_scene_folder(sc, tmp_path / "s")
+    problems = tscene.generate_sample_list(folder)
+    v_pad = 3
+    frame = tschedule.round_rect_frame(problems, 1, v_pad)
+    rng = np.random.default_rng(0)
+    flags = set()
+    for p in problems[:2]:
+        inp = tscene.load_problem_inputs(p, 1, need_prior=False,
+                                         need_weak=False,
+                                         need_src_depths=False)
+        deps = np.stack([sc.gt_depths[i] for i in p.src_image_ids]) * \
+            rng.uniform(0.9, 1.1, (v_pad, 48, 64)).astype(np.float32)
+        trh = tschedule._rect_host(p, inp, v_pad, frame)
+        ours = trc.build_rect_views(trh, inp.images, "cpu", src_depths=deps,
+                                    cameras=inp.cameras)
+        jrh = rectcost.build_rect_host(inp.cameras, 64, 48, v_pad,
+                                       force_size=frame, stacked=True)
+        with jax.disable_jit():
+            theirs = rectcost.build_rect_views(jrh, inp.images, deps,
+                                               cameras=inp.cameras)
+        compiled = rectcost.build_rect_views(jrh, inp.images, deps,
+                                             cameras=inp.cameras)
+        assert (trh.statics.wp, trh.statics.hp) == frame
+        flags |= set(trh.statics.f_transposed + trh.statics.b_transposed)
+        field = rng.random((frame[1], frame[0])).astype(np.float32)
+        chans = rng.random((2, 48, 64)).astype(np.float32)
+        for i, (a, b, c) in enumerate(zip(ours, theirs, compiled)):
+            for name in ("ref_rect", "src_rect", "ref_ok", "src_ok",
+                         "src_depth_rect", "orig_ok"):
+                np.testing.assert_array_equal(
+                    getattr(a, name).numpy(), np.asarray(getattr(b, name)),
+                    err_msg=f"{p.ref_image_id} {i} {name}")
+            np.testing.assert_allclose(a.ref_rect.numpy(),
+                                       np.asarray(c.ref_rect), rtol=1e-5,
+                                       atol=1e-4)
+            for nearest in (True, False):
+                x = trc.warp_bwd(a, trh.statics, i, torch.tensor(field),
+                                 nearest=nearest)
+                y = trc.warp_fwd_channels(a, trh.statics, i,
+                                          torch.tensor(chans),
+                                          nearest=nearest)
+                with jax.disable_jit():
+                    xj = rectcost.warp_bwd(b, jrh.statics, i,
+                                           jnp.asarray(field),
+                                           nearest=nearest)
+                    yj = rectcost.warp_fwd_channels(b, jrh.statics, i,
+                                                    jnp.asarray(chans),
+                                                    nearest=nearest)
+                np.testing.assert_array_equal(x.numpy(), np.asarray(xj))
+                np.testing.assert_array_equal(y.numpy(), np.asarray(yj))
+    assert flags == {False, True}        # both warp orientations ran
