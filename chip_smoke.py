@@ -87,17 +87,45 @@ pipeline by the CLI, as a user runs it. Phases:
      per scale, launches per kernel entry per round and in fusion, the peak
      device memory (captured inputs included, their bytes beside it), every
      problem's depth error and the cloud's point count, precision, recall
-     and F-score.
+     and F-score;
+ 10. the exact engine (``EngineConfig(use_rect=False)``: per-pixel
+     homography NCC, every 2-D gather through ``gather2d_hwc``) on the same
+     scene, in memory through ``process_problem``:
+     a. round-0 pass A for all problems, counters set to 0 just before and
+        read just after: gather2d_hwc must have launched and row_gather and
+        bilinear_x must not have (the exact engine does not rectify; a call
+        fails the phase with its call site); problem 0 meets the bar of
+        phase 6;
+     b. the modal pass B on that writeback (the stand-in support maps of
+        phase 7), for problems 0 and 1, then for the rest if the script is
+        projected to end within EXACT_BUDGET_S (it prints which ran):
+        gather2d_hwc and gather2d_pick must have launched; problem 0 no
+        worse than its 10a error + 0.003, valid > 50%;
+     c. every kernel entry bit-exact against its plain version at every
+        shape 10a and 10b gave it (captured as in phases 5 and 7); for
+        gather2d_hwc (A and B) and gather2d_pick (B) the three shapes that
+        move the most elements per sweep timed in turns with the library
+        call and the plain version (L2-cold), and every shape's cold time x
+        problem 0's launches summed per sweep beside the bounds;
+     d. problem 0's warm pass-A and pass-B sweeps on each engine in turns,
+        SIDE_PAIRS pairs per pass (the rect engine rebuilding its rect host
+        as in phases 5-8): median seconds, synchronised per-stage spans,
+        launches per kernel entry, peak device memory (no capture; beside
+        it what was allocated before the sweep) and the median relative
+        depth error, printed as one JSON line
+        (``engines_side_by_side``).
 
 Exits non-zero, without the result lines, when there is no CUDA device or
 any phase fails. The line before the last holds the kernel records as JSON
 (``launches``: the pipeline's, fusion's included; ``launches_by_path``:
-every path's); the last
-line is ``{"ok": true, "device": {...}}``.
+every path's, the exact engine's passes as "exact pass A" / "exact pass B";
+``exact``: phase 10c's timings); the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import shutil
 import statistics
@@ -105,12 +133,16 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from pathlib import Path
 
 W, H, VIEWS = 800, 600, 6
 SEED = 7
 REPS = 60                          # launches per timed function (median)
 SWEEP_REPS = 50                    # launches per captured shape (per sweep)
+EXACT_BUDGET_S = 900               # phase 10b runs every problem if the
+                                   # script stays under this in all
+SIDE_PAIRS = 3                     # phase 10d: (rect, exact) pairs per pass
 # Staging thresholds whose per-sweep time phase 8 reports: the plan stages
 # where L >= r * W (inf: never).
 REUSE_CHOICES = (0.25, 0.5, 1, 2, 4, 8, 16, float("inf"))
@@ -551,6 +583,316 @@ def pipeline_phase(sc, folder: Path, launches, reset, modules) -> dict:
             "seen": cap.seen}
 
 
+@contextlib.contextmanager
+def call_sites(module, names):
+    """Record where each of ``module``'s functions ``names`` is first called
+    from while the context is open (for a failure message)."""
+    orig = {n: getattr(module, n) for n in names}
+    sites = {}
+
+    def wrap(n):
+        def wrapped(*args, **kw):
+            sites.setdefault(n, "".join(traceback.format_stack(limit=10)[:-1]))
+            return orig[n](*args, **kw)
+        return wrapped
+    for n in names:
+        setattr(module, n, wrap(n))
+    try:
+        yield sites
+    finally:
+        for n in names:
+            setattr(module, n, orig[n])
+
+
+def sweep_timer(spans):
+    """A ``process_problem`` timer summing synchronised seconds per span
+    into ``spans``."""
+    import torch
+
+    @contextlib.contextmanager
+    def timer(name):
+        torch.cuda.synchronize()
+        ts = time.time()
+        yield
+        torch.cuda.synchronize()
+        spans[name] = spans.get(name, 0.0) + time.time() - ts
+    return timer
+
+
+def exact_phase(sc, out_dir: Path, cfg, v_pad: int, launches, reset,
+                modules, t_start: float, side_s) -> dict:
+    """Phases 10a and 10b: the exact engine (``EngineConfig(use_rect=
+    False)``) through ``process_problem``, round-0 pass A for every problem
+    of ``sc``, then the modal pass B on that writeback for every problem if
+    the script (which started at ``t_start``) can still end within
+    EXACT_BUDGET_S with ``side_s(exact pass-A s, exact pass-B s)`` seconds
+    left for phases 10c and 10d, else for problems 0 and 1. Every kernel entry is wrapped by :class:`Capture`.
+    Returns {"problems", "cfg", "a"/"b": launches of the pass, "per_sweep_a"
+    / "per_sweep_b": problem 0's, "counts_a" / "counts_b": problem 0's calls
+    per captured signature, "cap_a" / "cap_b": the captures, "med_a",
+    "sweep_s": seconds per sweep (pass A and B, problem 0 excluded)}."""
+    import numpy as np
+    import torch
+    from dpe_mvs_tpu_torch.config import PatchMatchParams, schedule_params
+    from dpe_mvs_tpu_torch.io import formats, scene
+    from dpe_mvs_tpu_torch.ops import rowgather as rg
+    from dpe_mvs_tpu_torch.pipeline import schedule as sch
+    from dpe_mvs_tpu_torch.utils.synthetic import support_maps
+
+    base = PatchMatchParams()
+    params_a = schedule_params(base, 0, None)
+    params_b = schedule_params(base, 1, 0)
+    ecfg = dataclasses.replace(cfg, use_rect=False)
+    device = torch.device("cuda")
+    problems = [scene.Problem(index=i, ref_image_id=i,
+                              src_image_ids=sc.src_ids(i),
+                              dense_folder=out_dir)
+                for i in range(len(sc.images))]
+
+    def depth_stats(p):
+        depth = formats.read_dmb(p.result_folder / "depths.dmb")
+        gt = sc.gt_depths[p.ref_image_id]
+        if depth.shape != gt.shape or not np.isfinite(depth).all():
+            fail(f"exact engine, problem {p.ref_image_id}: bad depth map")
+        ok = depth > 0
+        med = float(np.median(np.abs(depth[ok] - gt[ok]) / gt[ok])) \
+            if ok.any() else float("inf")
+        return med, float(ok.mean())
+
+    times = {"A": [], "B": []}
+
+    def sweep(p, params, name, **kw):
+        before = launches()
+        tp = time.time()
+        sch.process_problem(p, params, 1, 1, v_pad, ecfg, device=device,
+                            **kw)
+        torch.cuda.synchronize()
+        dt = time.time() - tp
+        if p.ref_image_id:
+            times[name].append(dt)
+        n = {k: v - before[k] for k, v in launches().items()}
+        med, valid = depth_stats(p)
+        print(f"problem {p.ref_image_id}: {dt:.2f} s, launches {n}; median "
+              f"rel depth error {med:.5f}, valid {valid:.4f}", flush=True)
+        return n
+
+    def run_pass(name, params, inputs_of, ids):
+        reset()
+        per_sweep = counts = None
+        with Capture(modules) as cap, \
+                call_sites(rg, ("row_gather", "bilinear_x")) as sites:
+            for i in ids:
+                p = problems[i]
+                p.iteration = 0 if name == "A" else 1
+                n = sweep(p, params, name, **inputs_of(p))
+                if per_sweep is None:
+                    per_sweep, counts = n, cap.counts()
+        n_all = launches()
+        print(f"launches: {n_all}")
+        for k in ("row_gather", "bilinear_x"):
+            if n_all[k]:
+                fail(f"exact pass {name} launched {k} {n_all[k]} times (the "
+                     f"exact engine does not rectify); first called from:\n"
+                     f"{sites.get(k, '(no call seen)')}")
+        return n_all, per_sweep, counts, cap
+
+    phase("10a. exact engine: pass A, all problems")
+    t0 = time.time()
+    a, per_a, counts_a, cap_a = run_pass(
+        "A", params_a, lambda p: {"inputs": sc.problem_inputs(p.ref_image_id)},
+        range(len(problems)))
+    print(f"all problems: {time.time() - t0:.2f} s (first includes warm-up)")
+    if a["gather2d_hwc"] <= 0:
+        fail("exact pass A did not launch gather2d_hwc")
+    med_a, valid_a = depth_stats(problems[0])
+    if not (med_a < 0.02 and valid_a > 0.5):
+        fail("problem 0 misses the ground-truth bar after exact pass A "
+             "(median < 2%, valid > 50%)")
+
+    phase("10b. exact engine: pass B")
+
+    def pass_b_inputs(p):
+        ids = [p.ref_image_id] + sc.src_ids(p.ref_image_id)
+        inp = scene.add_pass_inputs(sc.problem_inputs(p.ref_image_id),
+                                    p.result_folder,
+                                    [problems[i].result_folder for i in ids],
+                                    **sch.pass_needs(params_b))
+        return {"inputs": inp, "support_maps": support_maps(inp.images[0])}
+
+    # Problems 0 and 1 first; the rest only if the script can still end in
+    # time (projected from the sweeps so far).
+    t0 = time.time()
+    b, per_b, counts_b, cap_b = run_pass("B", params_b, pass_b_inputs, (0, 1))
+    per_problem = (time.time() - t0) / 2
+    rest = list(range(2, len(problems)))
+    projected = time.time() - t_start + per_problem * len(rest) + \
+        side_s(statistics.median(times["A"]), per_problem)
+    ran = [0, 1]
+    if rest and projected <= EXACT_BUDGET_S:
+        more = run_pass("B", params_b, pass_b_inputs, rest)
+        b = {k: b[k] + more[0][k] for k in b}
+        for name, seen in more[3].seen.items():
+            for sig, rec in seen.items():
+                cap_b.seen[name].setdefault(sig, [0, rec[1]])[0] += rec[0]
+        ran += rest
+    print(f"exact pass B ran problems {ran} (projected script time with "
+          f"all: {projected:.0f} s, budget {EXACT_BUDGET_S} s); launches "
+          f"{b}")
+    for k in ("gather2d_hwc", "gather2d_pick"):
+        if b[k] <= 0:
+            fail(f"exact pass B did not launch {k}")
+    med_b, valid_b = depth_stats(problems[0])
+    print(f"problem 0 after exact pass B: median rel depth error "
+          f"{med_b:.5f}, valid {valid_b:.4f} (exact pass A {med_a:.5f})")
+    if not (med_b <= med_a + 0.003 and valid_b > 0.5):
+        fail("problem 0 after exact pass B is worse than its pass A + 0.003 "
+             "(or valid <= 50%)")
+    return {"problems": problems, "cfg": ecfg, "a": a, "b": b,
+            "per_sweep_a": per_a, "per_sweep_b": per_b,
+            "counts_a": counts_a, "counts_b": counts_b, "cap_a": cap_a,
+            "cap_b": cap_b, "med_a": med_a, "ran_b": ran,
+            "sweep_s": {k: statistics.median(v) if v else None
+                        for k, v in times.items()}}
+
+
+def side_by_side(sc, engines, v_pad: int, launches, reset) -> dict:
+    """Phase 10d: problem 0's warm pass-A and pass-B sweeps on each engine
+    (``engines``: {name: (EngineConfig, problems whose result folders the
+    engine reads and writes)}), in turns, SIDE_PAIRS pairs per pass (the
+    order reversed every other pair), each with synchronised per-stage spans
+    (``sweep_timer``); the rect engine builds its rect host anew each time,
+    as in phases 5-8. Returns {pass: {engine: summary}}."""
+    import numpy as np
+    import torch
+    from dpe_mvs_tpu_torch.config import PatchMatchParams, schedule_params
+    from dpe_mvs_tpu_torch.io import formats, scene
+    from dpe_mvs_tpu_torch.pipeline import schedule as sch
+    from dpe_mvs_tpu_torch.utils.synthetic import support_maps
+
+    base = PatchMatchParams()
+    passes = {"A": schedule_params(base, 0, None),
+              "B": schedule_params(base, 1, 0)}
+    device = torch.device("cuda")
+    names = list(engines)
+    out = {}
+    for pname, params in passes.items():
+        runs = {e: [] for e in names}
+        for pair in range(SIDE_PAIRS):
+            for e in (names if pair % 2 == 0 else names[::-1]):
+                ecfg, problems = engines[e]
+                p = problems[0]
+                p.iteration = 2
+                kw = {"inputs": sc.problem_inputs(0)}
+                if pname == "B":
+                    ids = [0] + sc.src_ids(0)
+                    kw["inputs"] = scene.add_pass_inputs(
+                        kw["inputs"], p.result_folder,
+                        [problems[i].result_folder for i in ids],
+                        **sch.pass_needs(params))
+                    kw["support_maps"] = support_maps(
+                        kw["inputs"].images[0])
+                spans = {}
+                sch._RECT_HOSTS.clear()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                reset()
+                t0 = time.time()
+                sch.process_problem(p, params, 1, 1, v_pad, ecfg,
+                                    device=device, timer=sweep_timer(spans),
+                                    **kw)
+                torch.cuda.synchronize()
+                dt = time.time() - t0
+                depth = formats.read_dmb(p.result_folder / "depths.dmb")
+                gt = sc.gt_depths[0]
+                ok = depth > 0
+                runs[e].append({
+                    "s": dt, "spans": spans, "launches": launches(),
+                    "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+                    "held_mib": held / 2**20,
+                    "median_err": float(np.median(np.abs(depth[ok] - gt[ok])
+                                                  / gt[ok])),
+                    "valid": float(ok.mean())})
+        out[pname] = {}
+        for e in names:
+            r = runs[e]
+            out[pname][e] = {
+                "median_s": statistics.median(x["s"] for x in r),
+                "s": [x["s"] for x in r],
+                "spans": {k: statistics.median(x["spans"].get(k, 0.0)
+                                               for x in r)
+                          for k in r[0]["spans"]},
+                "launches": r[-1]["launches"],
+                "peak_mib": max(x["peak_mib"] for x in r),
+                "held_before_mib": max(x["held_mib"] for x in r),
+                "median_err": [x["median_err"] for x in r],
+                "valid": r[-1]["valid"]}
+            o = out[pname][e]
+            print(f"pass {pname}, {e} engine: median {o['median_s']:.3f} s "
+                  f"of {', '.join(f'{x:.3f}' for x in o['s'])}; spans "
+                  f"(median s) {', '.join(f'{k} {v:.3f}' for k, v in o['spans'].items())}; "
+                  f"launches {o['launches']}; peak {o['peak_mib']:.1f} MiB "
+                  f"({o['held_before_mib']:.1f} MiB held before the sweep); "
+                  f"median rel depth error "
+                  f"{', '.join(f'{x:.5f}' for x in o['median_err'])}",
+                  flush=True)
+    return out
+
+
+def exact_kernel_times(ex, modules, plain, flush) -> dict:
+    """Phase 10c's timings: for gather2d_hwc (exact pass A and B) and
+    gather2d_pick (exact pass B), the three shapes that move the most
+    elements per sweep (problem 0's launches x queries) timed in turns with
+    the library call and the plain version, L2-cold (``flush`` before every
+    launch), and every shape's cold time x problem 0's launches summed per
+    sweep beside the same sum of bounds. ``ex``: what :func:`exact_phase`
+    returned. Returns {entry: {pass: record}}."""
+    exact_recs = {}
+    for name, lab, cap, counts0 in (
+            ("gather2d_hwc", "exact pass A", ex["cap_a"], ex["counts_a"]),
+            ("gather2d_hwc", "exact pass B", ex["cap_b"], ex["counts_b"]),
+            ("gather2d_pick", "exact pass B", ex["cap_b"], ex["counts_b"])):
+        seen, fn = cap.seen[name], getattr(modules[name], name)
+        # Problem 0's launches at each shape; the shapes that move the most
+        # elements timed in turns with the library call and the plain
+        # version (L2-cold), then every shape's cold time x its launches.
+        sigs = sorted((sig for sig in seen if counts0[name].get(sig)),
+                      key=lambda sig: -counts0[name][sig]
+                      * seen[sig][1][1].numel())
+        shapes, sums = [], {"kernel_ms": 0.0, "bound_ms": 0.0}
+        for k, sig in enumerate(sigs):
+            args, c = seen[sig][1], counts0[name][sig]
+            b_ms, b_by = bound(name, args)
+            fns = {"kernel": lambda: fn(*args)}
+            if k < 3:
+                fns["library"] = library_call(name, args)
+                fns["plain"] = lambda: plain[name](*args)
+            t = time_turns(fns, reps=REPS if k < 3 else SWEEP_REPS,
+                           flush=flush)
+            sums["kernel_ms"] += c * t["kernel"]
+            sums["bound_ms"] += c * b_ms
+            if k < 3:
+                shapes.append({"shape": str(sig), "launches_per_sweep": c,
+                               "cold_ms": t["kernel"],
+                               "library_cold_ms": t["library"],
+                               "plain_cold_ms": t["plain"],
+                               "bound_ms": b_ms, "bound_by": b_by})
+                print(f"{name}, {lab}: {sig} x{c}: cold ms kernel "
+                      f"{t['kernel']:.4f}, library {t['library']:.4f} "
+                      f"({LIBRARY[name]}), plain {t['plain']:.4f}; bound "
+                      f"{b_ms:.4f} ({b_by}), {b_ms / t['kernel']:.0%}")
+        print(f"{name}, {lab}: per sweep (problem 0, "
+              f"{sum(counts0[name].values())} launches over {len(sigs)} "
+              f"shapes) {sums['kernel_ms']:.3f} ms cold, bound "
+              f"{sums['bound_ms']:.3f} ms")
+        exact_recs.setdefault(name, {})[lab] = {
+            "dominant": shapes, "sweep_ms": sums["kernel_ms"],
+            "sweep_bound_ms": sums["bound_ms"],
+            "launches_per_sweep": ex["per_sweep_a" if lab.endswith("A")
+                                     else "per_sweep_b"][name]}
+    return exact_recs
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -820,6 +1162,8 @@ def main() -> None:
                                       .cameras, W, H, v_pad).statics
         print(f"problem {p.ref_image_id}: rect frame {st.wp}x{st.hp}")
 
+    sweep_s = {"A": [], "B": []}           # seconds per sweep, problems 1-5
+
     def sweep(p, params, **kw):
         """One sweep of problem p; prints its time and its kernel launches
         and returns the launches."""
@@ -829,8 +1173,10 @@ def main() -> None:
         sch.process_problem(p, params, 1, 1, v_pad, cfg, device=device, **kw)
         torch.cuda.synchronize()
         n = {k: v - before[k] for k, v in launches().items()}
-        print(f"problem {p.ref_image_id}: {time.time() - tp:.2f} s, "
-              f"launches {n}")
+        dt = time.time() - tp
+        if p.ref_image_id:
+            sweep_s["A" if params is params_a else "B"].append(dt)
+        print(f"problem {p.ref_image_id}: {dt:.2f} s, launches {n}")
         return n
 
     reset()
@@ -1140,7 +1486,7 @@ def main() -> None:
         for k in ("kernel", "plain", "library"):
             fus[k] += c * t[k]
         fus["bound"] += c * b_ms
-    del scratch
+    del scratch, hwc_seen, args
     n_fus = sum(launches_p["fusion_sigs"].values())
     print(f"gather2d_hwc, fusion's {n_fus} launches: kernel "
           f"{fus['kernel']:.3f} ms, library {fus['library']:.3f} ms, plain "
@@ -1156,6 +1502,31 @@ def main() -> None:
                              "bound_ms": fus["bound"],
                              "fusion_s": launches_p["fusion_s"]}
     del launches_p["seen"]
+
+    # Phase 10: the exact engine on the same scene, in memory.
+    rect_s = {k: statistics.median(v) for k, v in sweep_s.items()}
+    ex = exact_phase(sc, out_dir / "exact", cfg, v_pad, launches, reset,
+                     modules, t_start, lambda ea, eb: SIDE_PAIRS * (
+                         rect_s["A"] + rect_s["B"] + ea + eb) + 60.0)
+
+    phase("10c. kernels at the exact engine's shapes")
+    scratch = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
+                          device=device)
+    for lab, cap in (("exact pass A", ex["cap_a"]), ("exact pass B",
+                                                     ex["cap_b"])):
+        for name in GATHERS:
+            check(name, cap.seen[name], lab)
+        print(f"{lab}: bit-exact at every shape (" + ", ".join(
+            f"{n} {len(cap.seen[n])}" for n in modules) + ")")
+    exact_recs = exact_kernel_times(ex, modules, plain, flush)
+    del scratch, ex["cap_a"], ex["cap_b"]
+
+    phase("10d. the two engines side by side (problem 0)")
+    cmp = side_by_side(sc, {"rect": (cfg, problems),
+                            "exact": (ex["cfg"], ex["problems"])},
+                       v_pad, launches, reset)
+    print(json.dumps({"engines_side_by_side": cmp}))
+
     for rec in kernels:
         name = rec["name"]
         rec["launches"] = launches_p["all"][name]
@@ -1164,7 +1535,10 @@ def main() -> None:
             "pipeline": launches_p["all"][name],
             **{f"pipeline round {i}": n[name]
                for i, n in enumerate(launches_p["rounds"])},
-            "pipeline fusion": launches_p["fusion"][name]}
+            "pipeline fusion": launches_p["fusion"][name],
+            "exact pass A": ex["a"][name], "exact pass B": ex["b"][name]}
+        if name in exact_recs:
+            rec["exact"] = exact_recs[name]
     print(f"script time {time.time() - t_start:.1f} s")
 
     shutil.rmtree(out_dir, ignore_errors=True)

@@ -115,9 +115,12 @@ class EngineConfig:
     profile: DatasetProfile = ETH3D
     # Cap on padded images kept resident on device at once.
     max_images: int = MAX_IMAGES
-    # Cost engine: the port runs the rectified row-local engine; the exact
-    # (non-rectified) engine is not ported yet. Kept so both packages'
-    # configurations have the same fields.
+    # Cost engine: False runs the exact engine (per-pixel homography NCC,
+    # every 2-D gather through gather2d_hwc); True or None the rectified
+    # row-local engine. The JAX package's None picks the exact engine on
+    # the CPU, a TPU workaround; the port's None keeps the rect engine on
+    # every device, so a default run computes the same on the CPU as on the
+    # card (a deliberate difference, ROADMAP queue 3).
     use_rect: Optional[bool] = None
 
 

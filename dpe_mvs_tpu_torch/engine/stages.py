@@ -1,12 +1,15 @@
-"""Staged sweep executor on the rectified engine.
+"""Staged sweep executor of both cost engines.
 
 Port of :mod:`dpe_mvs_tpu.engine.stages`. One sweep runs
 
     [support] -> init -> [weakprep] -> (strong [-> weak]) x max_iterations
     -> finish -> classify -> refine
 
-with support and weakprep when the weak-texture machinery is on
-(``use_APD``; support also for ``use_edge``), and the JAX package's key
+on the rectified engine when given its statics (``rstat``), else on the
+exact engine (per-pixel homography NCC, :mod:`.patchmatch` and
+:mod:`..ops.weak`), with support when the weak-texture machinery is on
+(``use_APD``; support also for ``use_edge``), weakprep on the rect engine
+with ``use_APD``, and the JAX package's key
 schedule call for call: ``keys = state.key.split(32)``; ``keys[0]`` goes to
 support (the anchor search); ``keys[1]`` is the iteration base,
 ``fold_in(it)`` per iteration, then ``fold_in(color)`` per strong color,
@@ -27,15 +30,6 @@ from .state import PMState, SweepData
 WEAK = int(PixelState.WEAK)
 
 
-def check_engine(rstat) -> None:
-    """The port runs the rectified engine; ``rstat`` None (the exact engine)
-    raises."""
-    if rstat is None:
-        raise NotImplementedError(
-            "the exact (non-rectified) engine is not ported yet: it arrives "
-            "with slice 5")
-
-
 def _support_stage(data: SweepData, state: PMState, key,
                    params: PatchMatchParams):
     return sweep.build_support(data, state, params, key)
@@ -43,6 +37,8 @@ def _support_stage(data: SweepData, state: PMState, key,
 
 def _init_stage(data: SweepData, state: PMState, params: PatchMatchParams,
                 rstat) -> PMState:
+    if rstat is None:
+        return pm.initialize(data, state, params)
     return strong_rect.initialize_rect(data, state, params, rstat)
 
 
@@ -56,9 +52,17 @@ def _strong_iter(data: SweepData, state: PMState, it, key_it,
                  params: PatchMatchParams, rstat, sup=pm.EMPTY_SUPPORT
                  ) -> PMState:
     """One propagation iteration over strong pixels, both checkerboard
-    colors. The current plane's cost vector is shared by both colors (the
-    cost at a pixel depends only on that pixel's plane, and color 0 writes
-    only color-0 sites), and so are the evaluators and their caches."""
+    colors. On the rect engine the current plane's cost vector is shared by
+    both colors (the cost at a pixel depends only on that pixel's plane, and
+    color 0 writes only color-0 sites), and so are the evaluators and their
+    caches."""
+    if rstat is None:
+        for color in (0, 1):
+            out = pm.propagate_strong(key_it.fold_in(color), data, sup,
+                                      state, params, it, color)
+            state = sweep.apply_compacted(state, state.weak != WEAK, color,
+                                          *out)
+        return state
     cost_fn = strong_rect.make_cost_fn(data, params, rstat)
     stride = strong_rect.screen_stride(params, rstat)
     cost_fn_s = (strong_rect.make_cost_fn(data, params, rstat, stride=stride)
@@ -79,9 +83,14 @@ def _weak_iter(data: SweepData, sup, state: PMState, it, key_it,
     sup_it = sup._replace(**weak_ops.fit_plane_ransac(
         key_it.fold_in(2), data, sup, state, params))
     for color in (0, 1):
-        out = weak_rect.propagate_weak_rect(
-            key_it.fold_in(3 + color), data, sup_it, state, params, it,
-            color, rstat, bundle)
+        k = key_it.fold_in(3 + color)
+        if rstat is None:
+            out = weak_ops.propagate_weak(k, data, sup_it, state, params, it,
+                                          color)
+        else:
+            out = weak_rect.propagate_weak_rect(k, data, sup_it, state,
+                                                params, it, color, rstat,
+                                                bundle)
         state = sweep.apply_compacted(state, state.weak == WEAK, color, *out)
     return state
 
@@ -95,7 +104,7 @@ def _finish_stage(data: SweepData, state: PMState,
     for color in (0, 1):
         new_depth = pm.median_filter_depth(data, state.plane, state.cost,
                                            state.weak)
-        mask = pm.checkerboard_mask(H, W, color, data.device) & \
+        mask = sweep.checkerboard_mask(H, W, color, data.device) & \
             (state.weak != WEAK)
         plane = state.plane.clone()
         plane[..., 3] = torch.where(mask, new_depth, state.plane[..., 3])
@@ -119,13 +128,16 @@ def _refine_stage(data: SweepData, state: PMState, params: PatchMatchParams,
 
 
 def run_sweep_staged(data: SweepData, state: PMState,
-                     params: PatchMatchParams, *, rstat,
+                     params: PatchMatchParams, *, rstat=None,
                      timer=None) -> PMState:
-    """One full PatchMatch sweep on the rectified engine.
+    """One full PatchMatch sweep: on the rectified engine with its statics
+    ``rstat`` (``data.rect`` holding the rect views), else on the exact
+    engine (whose bilinear corner maps are built here once).
 
     ``timer``: optional callable ``timer(name)`` returning a context manager
     around each stage (it is responsible for any device synchronisation)."""
-    check_engine(rstat)
+    if rstat is None:
+        data = pm.with_corners(data)
     keys = state.key.split(32)
 
     def run(name, fn, *args):
@@ -140,7 +152,7 @@ def run_sweep_staged(data: SweepData, state: PMState,
                          params)
     state = run("init", _init_stage, data, state, params, rstat)
     bundle = None
-    if params.use_APD:
+    if params.use_APD and rstat is not None:
         bundle = run("weakprep", _weakprep_stage, data, sup, state, params,
                      rstat)
     base_key = keys[1]

@@ -2,7 +2,8 @@
 
 Port of :mod:`dpe_mvs_tpu.engine.state`. Two dataclasses of tensors:
 
-  - :class:`SweepData` — per-sweep inputs (images, cameras, edges, rect views);
+  - :class:`SweepData` — per-sweep inputs (images, cameras, edges, rect
+    views or the exact engine's corner maps);
   - :class:`PMState`  — the per-pixel state a sweep transforms (plane
     hypotheses, costs, view selection, pixel classification) and its key.
 
@@ -92,6 +93,11 @@ class SweepData:
     edge_low: torch.Tensor      # (Hl, Wl) bool
     label: torch.Tensor         # (H, W) i32
     rect: Optional[tuple] = None  # per-view rectcost.RectView
+    # Bilinear corner maps (sampling.corner_map) of the exact engine, built
+    # once per sweep: (H, W, 4) of the reference, (V, H, W, 4) of the
+    # sources.
+    ref_corners: Optional[torch.Tensor] = None
+    src_corners: Optional[torch.Tensor] = None
 
     @property
     def height(self) -> int:

@@ -16,10 +16,9 @@ import torch
 
 from ..config import COST_MAX, PatchMatchParams, PixelState, RunState
 from ..geometry import cameras as geo
-from ..ops import planes as planegen
 from ..ops import sampling, support
 from . import patchmatch as pm
-from . import rectcost
+from . import rectcost, sweep
 from .state import PMState, SweepData
 
 WEAK = int(PixelState.WEAK)
@@ -68,10 +67,6 @@ def classic_candidate_planes(cost_map: torch.Tensor, plane: torch.Tensor):
 _EDGE_STEP_SET = (2, 4, 6)
 
 
-def _s_mag(it) -> int:
-    return max(1, 5 - 2 * int(it))
-
-
 def _scan_offsets(stack5: torch.Tensor, plane: torch.Tensor, table, xg, yg):
     """Carry the min-cost entry of ``stack5`` (5, H, W) = [cost, plane x4]
     over the offset table ``[(dx, dy, extra_ok), ...]`` (``extra_ok`` an
@@ -95,13 +90,6 @@ def _scan_offsets(stack5: torch.Tensor, plane: torch.Tensor, table, xg, yg):
     return best_c, best_p
 
 
-def _diag_fix(d: int, dx_u: int, dy_u: int):
-    """The reference's extra unit step of the last diagonal directions."""
-    if d > 4:
-        return (dx_u, 0) if d % 2 == 1 else (0, dy_u)
-    return 0, 0
-
-
 def edge_candidate_planes(cost_map: torch.Tensor, plane: torch.Tensor,
                           edge: torch.Tensor, edge_steps: torch.Tensor, it):
     """Edge-bounded directional sampling (DPE.cu:1242-1292) with the
@@ -114,7 +102,7 @@ def edge_candidate_planes(cost_map: torch.Tensor, plane: torch.Tensor,
     H, W = cost_map.shape
     max_edge_dist = max(H, W) / 30.0
     min_step = 2
-    s_mag = _s_mag(it)
+    s_mag = pm._s_mag(it)
     xg, yg = pm.int_grids(H, W, cost_map.device)
     stack5 = torch.cat([cost_map[None], plane.permute(2, 0, 1)])
 
@@ -129,7 +117,7 @@ def edge_candidate_planes(cost_map: torch.Tensor, plane: torch.Tensor,
         dist = torch.where(edge, torch.full_like(dist, 11.0 * min_step), dist)
         step_num = (dist / min_step).to(torch.int32).clamp(11, 22)
         step_len_f = dist / step_num.to(torch.float32)
-        fx, fy = _diag_fix(d, dx_u, dy_u)
+        fx, fy = pm._diag_fix(d, dx_u, dy_u)
         slq = torch.round(step_len_f).clamp(min_step, _EDGE_STEP_SET[-1]) \
             .to(torch.int32)
         table = []
@@ -150,14 +138,14 @@ def second_pass_candidate_planes(cost_map: torch.Tensor, plane: torch.Tensor,
     """Short-range non-local pass (DPE.cu:1293-1343): 11 probes at step 2
     per direction, at this iteration's step magnitude."""
     H, W = cost_map.shape
-    s_mag = _s_mag(it)
+    s_mag = pm._s_mag(it)
     xg, yg = pm.int_grids(H, W, cost_map.device)
     stack5 = torch.cat([cost_map[None], plane.permute(2, 0, 1)])
 
     flags, cands = [], []
     for d in range(8):
         dx_u, dy_u = pm._EDGE_DIRS[d]
-        fx, fy = _diag_fix(d, dx_u, dy_u)
+        fx, fy = pm._diag_fix(d, dx_u, dy_u)
         table = [(s_mag * dx_u + t * 2 * dx_u + fx,
                   s_mag * dy_u + t * 2 * dy_u + fy, None) for t in range(11)]
         best_c, best_p = _scan_offsets(stack5, plane, table, xg, yg)
@@ -201,48 +189,10 @@ def make_cost_fn(data: SweepData, params: PatchMatchParams, rstat,
 
 def initialize_rect(data: SweepData, state: PMState,
                     params: PatchMatchParams, rstat) -> PMState:
-    """``RandomInitialization`` (DPE.cu:1035-1063) on the rect engine:
-    random planes in the first round; later passes re-frame the prior
-    (world normal, depth) into camera planes and keep the selected views
-    whose cost is valid."""
-    H, W = data.ref_image.shape
-    px, py = geo.pixel_grid(H, W, data.device)
-    cost_fn = make_cost_fn(data, params, rstat)
-    key, sub = state.key.split(2)
-    zero = torch.zeros((), device=data.device)
-
-    if params.state != RunState.FIRST_INIT:
-        n_cam = geo.normal_world_to_cam(data.ref_cam, state.plane[..., :3])
-        plane = geo.plane_from_depth_normal(data.ref_cam, px, py,
-                                            state.plane[..., 3], n_cam)
-        costs = cost_fn(plane)
-        bit = pm.selected_bits(state.selected, costs.shape[0])
-        use = bit & (costs < COST_MAX)
-        cnt = use.sum(0)
-        cost = torch.where(cnt > 0, torch.where(use, costs, zero).sum(0)
-                           / cnt.clamp(min=1),
-                           torch.full((H, W), COST_MAX, device=data.device))
-        keep = ~(bit & (costs >= COST_MAX))
-        return state.replace(plane=plane, cost=cost,
-                             selected=pm.pack_bits(bit & keep), key=key)
-
-    plane = planegen.random_plane(sub, data.ref_cam, px, py,
-                                  data.depth_min, data.depth_max)
-    costs = cost_fn(plane)
-    v = costs.shape[0]
-    num_valid = (costs < COST_MAX).sum(0)
-    top_k = num_valid.clamp(max=params.top_k)
-    sorted_c = torch.sort(costs, dim=0).values
-    ks = (top_k - 1).clamp(0, v - 1)
-    kth = _select_k(sorted_c, ks)
-    mask_steps = torch.arange(v, device=data.device)[:, None, None] < top_k[None]
-    mean_cost = torch.where(mask_steps, sorted_c, zero).sum(0) / \
-        top_k.clamp(min=1)
-    cost = torch.where(top_k > 0, mean_cost, torch.full_like(mean_cost,
-                                                             COST_MAX))
-    sel_bits = (costs <= kth[None]) & (top_k[None] > 0)
-    return state.replace(plane=plane, cost=cost,
-                         selected=pm.pack_bits(sel_bits), key=key)
+    """``RandomInitialization`` (DPE.cu:1035-1063) on the rect engine
+    (:func:`.patchmatch.init_from_costs` over its cost function)."""
+    return pm.init_from_costs(data, state, params,
+                              make_cost_fn(data, params, rstat))
 
 
 def refine_strong_rect(key, data: SweepData, params: PatchMatchParams,
@@ -397,7 +347,7 @@ def apply_strong_full(state: PMState, mask, color, plane, cost, selected,
     """Write one color's full-res proposal back into state (masked to the
     color's checkerboard sites and ``mask``)."""
     H, W = state.cost.shape
-    m = pm.checkerboard_mask(H, W, color, state.cost.device) & mask
+    m = sweep.checkerboard_mask(H, W, color, state.cost.device) & mask
     return state.replace(
         plane=torch.where(m[..., None], plane, state.plane),
         cost=torch.where(m, cost, state.cost),

@@ -1,10 +1,13 @@
-"""Per-sweep support maps and compacted write-back.
+"""Sweep composition: support maps, the checkerboard, compacted write-back
+and ``RunPatchMatch`` on the exact engine.
 
-Port of :func:`dpe_mvs_tpu.engine.sweep.build_support` (GenEdgeInform /
-FindNearestStrongPoint / GenNeighbours equivalents, DPE.cu:3153-3171) and
-:func:`apply_compacted`. The JAX module's monolithic ``run_sweep`` belongs to
-the exact engine; its separately-jitted support pieces were a TPU compile
-workaround and have no counterpart here.
+Port of :mod:`dpe_mvs_tpu.engine.sweep`: :func:`build_support`
+(GenEdgeInform / FindNearestStrongPoint / GenNeighbours equivalents,
+DPE.cu:3153-3171), :func:`checkerboard_mask`, :func:`apply_compacted` and
+:func:`run_sweep`, which is :func:`.stages.run_sweep_staged` without a rect
+engine (the JAX package holds its one-jit sweep and its staged executor to
+the same computation). The JAX module's separately-jitted support pieces
+were a TPU compile workaround and have no counterpart here.
 """
 from __future__ import annotations
 
@@ -18,6 +21,13 @@ from . import patchmatch as pm
 from .state import PMState, SweepData
 
 STRONG = int(PixelState.STRONG)
+
+
+def checkerboard_mask(H: int, W: int, color: int, device) -> torch.Tensor:
+    """color 0 == 'black' ((x + y) even), 1 == 'red' (DPE.cu:1864-1938)."""
+    yg = torch.arange(H, device=device)[:, None]
+    xg = torch.arange(W, device=device)[None, :]
+    return ((xg + yg) % 2) == color
 
 
 def build_support(data: SweepData, state: PMState, params: PatchMatchParams,
@@ -75,3 +85,10 @@ def apply_compacted(state: PMState, mask: torch.Tensor, color: int, plane_c,
         selected=torch.where(mask, sel_n, state.selected),
         view_weight=torch.where(mask[..., None], vw_n, state.view_weight),
     )
+
+
+def run_sweep(data: SweepData, state: PMState, params: PatchMatchParams
+              ) -> PMState:
+    """One full PatchMatch sweep (state -> state) on the exact engine."""
+    from .stages import run_sweep_staged
+    return run_sweep_staged(data, state, params, rstat=None)

@@ -47,7 +47,7 @@ from ..ops import checker, ncc, sampling
 from ..ops import gather2d as g2d
 from . import patchmatch as pm
 from . import rectcost
-from . import strong_rect
+from . import strong_rect, sweep
 from .rectcost import VALID_THRESH, VOL_INVALID, _sweep_ncc_volume
 from .state import PMState, SweepData
 
@@ -618,7 +618,7 @@ def propagate_weak_rect(key, data: SweepData, sup, state: PMState,
     # Re-express the stored cost with the standard strong NCC of the field
     # the writeback would store, so weak and strong costs are comparable
     # during propagation (DPE.cu:1845-1861).
-    cmask = pm.checkerboard_mask(H, W, color, data.device)
+    cmask = sweep.checkerboard_mask(H, W, color, data.device)
     plane_full = torch.where(cmask[..., None], plane, state.plane)
     final_vec = rectcost.rect_cost_vector_stacked(
         rectcost.build_rect_stack(data.rect, rstat), plane_full,

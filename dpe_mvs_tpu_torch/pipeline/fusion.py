@@ -42,15 +42,6 @@ def _camera(c, device) -> geo.Camera:
                       t=torch.as_tensor(c.t, device=device))
 
 
-def _round_to_int32(x: torch.Tensor) -> torch.Tensor:
-    """Round half to even, then convert as XLA does: saturated to the int32
-    range, NaN to 0. (A plain ``.to(torch.int32)`` of such a value is
-    undefined in C++ and differs between the CPU and the card.)"""
-    r = torch.round(x)
-    r = torch.where(torch.isnan(r), 0.0, r.clamp(-2.0 ** 31, 2.0 ** 31))
-    return r.to(torch.int64).clamp(-2 ** 31, 2 ** 31 - 1).to(torch.int32)
-
-
 def _fuse_view(ref_cam: geo.Camera, src_cams: geo.Camera, ref_depth,
                ref_normal, ref_weak, ref_mask, src_depths, src_normals,
                src_masks):
@@ -70,7 +61,8 @@ def _fuse_view(ref_cam: geo.Camera, src_cams: geo.Camera, ref_depth,
     for v in range(src_depths.shape[0]):
         cam = geo.Camera(K=src_cams.K[v], R=src_cams.R[v], t=src_cams.t[v])
         sx, sy, _ = geo.project_to_camera(cam, Xw)
-        sxi, syi = _round_to_int32(sx), _round_to_int32(sy)
+        sxi = sampling.to_int32(sx, rounding=True)
+        syi = sampling.to_int32(sy, rounding=True)
         inb = (sxi >= 0) & (sxi < W) & (syi >= 0) & (syi < H)
         d_src = sampling.gather_map(src_depths[v], syi, sxi)
         n_src = sampling.gather_map(src_normals[v], syi, sxi)

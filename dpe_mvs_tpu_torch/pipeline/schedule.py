@@ -1,6 +1,7 @@
 """The coarse-to-fine pipeline (``RunDPEPipeline``, main.cpp:474-600).
 
-Port of :mod:`dpe_mvs_tpu.pipeline.schedule` on the rectified engine.
+Port of :mod:`dpe_mvs_tpu.pipeline.schedule`, on either cost engine
+(:func:`use_rect_engine`).
 Schedule per resolution round i (scale = 2^(rounds-1-i)):
   pass A - photometric: FIRST_INIT (round 0) or REFINE_INIT;
   pass B - 3x geometric-consistency REFINE_ITER sweeps.
@@ -10,7 +11,8 @@ As in the reference, all state between sweeps lives on disk under
 ``selected_views.bin`` and the per-scale ``edges_<s>.dmb`` /
 ``labels_<s>.dmb``), in the JAX package's formats, so every sweep is
 resumable. The sweeps run on ``device`` (the card unless the caller asks
-for "cpu"); loading, edge extraction and rectification stay on the host.
+for "cpu"); loading, edge extraction and the rect engine's rectification
+stay on the host.
 """
 from __future__ import annotations
 
@@ -51,6 +53,12 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError("CUDA device requested but torch.cuda is not "
                            "available")
     return device
+
+
+def use_rect_engine(cfg: EngineConfig) -> bool:
+    """The rectified engine unless ``cfg.use_rect`` is False (the exact
+    engine); see ``config.EngineConfig.use_rect``."""
+    return cfg.use_rect is not False
 
 
 def pass_needs(params: PatchMatchParams) -> dict:
@@ -184,10 +192,12 @@ def process_problem(problem, params: PatchMatchParams, scale_size: int,
     (``scene.ProblemInputs``), loaded from the dense folder when None.
     ``support_maps``: (edge, edge_low, label) for passes with the weak
     machinery or edges, read from the problem's cache
-    (:func:`load_support_maps`) when None. ``rect_frame``: optional common
-    (wp, hp) rect frame. ``timer``: optional callable ``timer(name)``
-    returning a context manager, wrapped around the load, rectify,
-    src-depth rectify, writeback and every sweep stage. With the problem's
+    (:func:`load_support_maps`) when None. ``cfg.use_rect`` picks the cost
+    engine (:func:`use_rect_engine`); the exact engine builds no rect host.
+    ``rect_frame``: optional common (wp, hp) rect frame of the rect engine.
+    ``timer``: optional callable ``timer(name)`` returning a context
+    manager, wrapped around the load, rectify, src-depth rectify (rect
+    engine), writeback and every sweep stage. With the problem's
     ``show_medium_result``, the written maps also go to ``depth_<it>.jpg``,
     ``normal_<it>.jpg`` and ``weak_<it>.jpg`` (PNG bytes)."""
     device = resolve_device(device)
@@ -210,15 +220,18 @@ def process_problem(problem, params: PatchMatchParams, scale_size: int,
         st = state_mod.init_pm_state(inputs, v_pad, key, params.use_APD,
                                      device)
 
-    with span("rectify"):
-        rh = _rect_host(problem, inputs, v_pad, rect_frame)
-        views = rectcost.build_rect_views(rh, inputs.images, device)
-    if params.geom_consistency and inputs.src_depths is not None:
-        with span("src-depth rectify"):
-            views = rectcost.rectify_src_depths(
-                views, rh, inputs.src_depths[1:], inputs.cameras)
-    data = data.replace(rect=views)
-    st = run_sweep_staged(data, st, params, rstat=rh.statics, timer=timer)
+    rstat = None
+    if use_rect_engine(cfg):
+        with span("rectify"):
+            rh = _rect_host(problem, inputs, v_pad, rect_frame)
+            views = rectcost.build_rect_views(rh, inputs.images, device)
+        if params.geom_consistency and inputs.src_depths is not None:
+            with span("src-depth rectify"):
+                views = rectcost.rectify_src_depths(
+                    views, rh, inputs.src_depths[1:], inputs.cameras)
+        data = data.replace(rect=views)
+        rstat = rh.statics
+    st = run_sweep_staged(data, st, params, rstat=rstat, timer=timer)
 
     with span("writeback"):
         plane = st.plane.cpu().numpy()
@@ -367,7 +380,8 @@ def run_pipeline(dense_folder, *, verbose: bool = True, fusion: bool = False,
     for i, scale_size in enumerate(scale_sizes):
         # One rect frame per round, shared by every problem's sweeps.
         rect_frame = (round_rect_frame(problems, scale_size, v_pad)
-                      if len(problems) > 1 else None)
+                      if use_rect_engine(cfg) and len(problems) > 1
+                      else None)
         for j in [None, 0, 1, 2]:
             params = config.schedule_params(base, i, j)
             if iteration > done_iter:

@@ -151,12 +151,12 @@ def test_cv2_free_renderer_matches_folder_scene(folder_scene):
 
 
 def test_process_problem_rejects_later_passes(tmp_path):
-    """What is not ported yet raises, naming its slice: the exact engine
-    (slice 5). Without inputs a sweep loads its problem from the dense
-    folder, and a pass with the weak machinery or edges reads the round's
-    edge and label maps from the problem's cache: missing files raise."""
+    """Without inputs a sweep loads its problem from the dense folder, and a
+    pass with the weak machinery or edges reads the round's edge and label
+    maps from the problem's cache: missing files raise. The exact engine
+    (``EngineConfig(use_rect=False)``) runs a 32x24 pass A without a rect
+    host."""
     from dpe_mvs_tpu_torch import config as tcfg
-    from dpe_mvs_tpu_torch.engine import stages as tstages
     from dpe_mvs_tpu_torch.io import scene as tscene
     mem = tsynth.make_plane_scene(width=32, height=24, num_views=2, seed=1)
     prob = tscene.Problem(index=0, ref_image_id=0, src_image_ids=[1],
@@ -165,8 +165,14 @@ def test_process_problem_rejects_later_passes(tmp_path):
     with pytest.raises(FileNotFoundError, match="00000000.jpg"):
         tschedule.process_problem(prob, pass_a, 1, 1, 1, tcfg.EngineConfig(),
                                   device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tstages.check_engine(None)
+    tschedule._RECT_HOSTS.clear()
+    st = tschedule.process_problem(prob, pass_a, 1, 1, 1,
+                                   tcfg.EngineConfig(use_rect=False),
+                                   device="cpu", inputs=mem.problem_inputs(0))
+    assert not tschedule._RECT_HOSTS
+    assert st.plane.shape == (24, 32, 4)
+    assert torch.isfinite(st.plane).all()
+    assert (prob.result_folder / "depths.dmb").is_file()
     for params in (tcfg.schedule_params(tcfg.PatchMatchParams(), 1, None),
                    tcfg.schedule_params(tcfg.PatchMatchParams(), 1, 0)):
         with pytest.raises(FileNotFoundError, match="edges_0.dmb"):

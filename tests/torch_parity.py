@@ -172,3 +172,47 @@ def weak_scene(folder, *, width=48, height=36, views=3, seed=3,
         sc=sc, problem=problem, inputs=inputs, maps=(edge, edge_low, label),
         params=params, v_pad=v_pad, rh=rh, views=rviews,
         data=data._replace(rect=rviews), st0=st0)
+
+
+def xla_cpu_float(monkeypatch):
+    """Make torch compute float32 library functions as XLA:CPU does, for the
+    duration of a test: ``torch.exp`` and ``torch.sqrt`` through
+    ``jax.numpy`` (XLA's own approximations, an ulp from libm's on some
+    arguments), and
+    ``Tensor.sum`` over given dims in XLA:CPU's order (one running sum for
+    up to 32 terms, two halves summed apart for 33-64; the only sizes the
+    small test frames reach). Under it the port's NCC costs equal JAX's run
+    op by op to an ulp: what is left between them is the library, not the
+    port's arithmetic."""
+    import jax.numpy as jnp
+
+    plain_sum = torch.Tensor.sum
+
+    def running(a):
+        t = a[0]
+        for i in range(1, a.shape[0]):
+            t = t + a[i]
+        return t
+
+    def xla_sum(self, dim=None, *args, **kw):
+        if dim is None or not self.is_floating_point():
+            return plain_sum(self, dim, *args, **kw)
+        x = self
+        if isinstance(dim, tuple):
+            assert dim == (0, 1), dim
+            x, dim = x.flatten(0, 1), 0
+        x = x.movedim(dim, 0)
+        n = x.shape[0]
+        assert n <= 64, n
+        if n <= 32:
+            return running(x)
+        k = -(-n // 2)
+        return running(x[:k]) + running(x[k:])
+
+    def xla(fn):
+        return lambda x: torch.from_numpy(np.array(fn(jnp.asarray(
+            x.numpy()))))
+
+    monkeypatch.setattr(torch.Tensor, "sum", xla_sum)
+    monkeypatch.setattr(torch, "exp", xla(jnp.exp))
+    monkeypatch.setattr(torch, "sqrt", xla(jnp.sqrt))
