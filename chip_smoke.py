@@ -113,12 +113,39 @@ pipeline by the CLI, as a user runs it. Phases:
         launches per kernel entry, peak device memory (no capture; beside
         it what was allocated before the sweep) and the median relative
         depth error, printed as one JSON line
-        (``engines_side_by_side``).
+        (``engines_side_by_side``);
+ 11. the view-parallel path (``pipeline.parallel_schedule``,
+     ``parallel.mesh``, ``parallel.tiles``) over a one-rank NCCL group the
+     phase makes on a local rendezvous and destroys at its end (one card:
+     NCCL refuses two ranks on one device, so every collective has one
+     rank):
+     a. ``run_pipeline_parallel`` with fusion on a fresh copy of phase 9's
+        dense folder (2 rounds of 4 passes over the 6 problems, the state on
+        the card for a round, the exchange between passes), counters set to
+        0 just before and read just after, inside :class:`Capture`: all five
+        kernel entries must have launched; seconds per pass and in all, the
+        runner's spans (load, reinit, exchange, sweep, writeback, fusion),
+        launches per round, peak memory, problem 0's depth error and valid
+        share (phase 9's bar) and the cloud's points, precision and recall
+        (phase 9's bars), each beside phase 9's number (the runners draw
+        other keys and read depths otherwise, so never bit for bit);
+     b. ``fusion.run_fusion_mesh`` on 11a's maps: its point count within 1%
+        of ``run_fusion``'s (11a's cloud), its seconds and vote passes, and
+        the JAX package's two-pass schedule (``max_passes=2``) beside it;
+     c. ``parallel.tiles.tile_sharded_sweep`` with one tile (one card) on
+        problem 0's pass A, beside the unsharded sweep, held to
+        ``tests/test_tiles.py``'s bars (median < 0.01; tile median <
+        max(2 x unsharded, 0.01)).
+     Every kernel entry bit-exact against its plain version at every shape
+     11a-c gave it; their numbers beside phase 9's as one JSON line
+     (``parallel_vs_sequential``).
 
 Exits non-zero, without the result lines, when there is no CUDA device or
 any phase fails. The line before the last holds the kernel records as JSON
 (``launches``: the pipeline's, fusion's included; ``launches_by_path``:
-every path's, the exact engine's passes as "exact pass A" / "exact pass B";
+every path's, the exact engine's passes as "exact pass A" / "exact pass B",
+phase 11's as "parallel pipeline" (and per round), "mesh fusion" and "tile
+sweep";
 ``exact``: phase 10c's timings); the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -140,8 +167,9 @@ W, H, VIEWS = 800, 600, 6
 SEED = 7
 REPS = 60                          # launches per timed function (median)
 SWEEP_REPS = 50                    # launches per captured shape (per sweep)
-EXACT_BUDGET_S = 900               # phase 10b runs every problem if the
-                                   # script stays under this in all
+EXACT_BUDGET_S = 800               # phase 10b runs every problem if the
+                                   # script is projected to stay under
+                                   # this in all (phase 11 included)
 SIDE_PAIRS = 3                     # phase 10d: (rect, exact) pairs per pass
 # Staging thresholds whose per-sweep time phase 8 reports: the plan stages
 # where L >= r * W (inf: never).
@@ -395,7 +423,8 @@ def pipeline_phase(sc, folder: Path, launches, reset, modules) -> dict:
     {"all": launches of the run, "rounds": [launches per round], "fusion":
     launches in fusion, "fusion_sigs": fusion's gather2d_hwc calls per
     captured signature, "fusion_s": fusion's seconds, "seen": the captured
-    inputs per entry}."""
+    inputs per entry, "summary": the numbers phase 11 prints beside its
+    own}."""
     import numpy as np
     import torch
     from dpe_mvs_tpu_torch import cli
@@ -528,6 +557,8 @@ def pipeline_phase(sc, folder: Path, launches, reset, modules) -> dict:
             if ok.any() else float("inf")
         print(f"problem {v}: median rel depth error {med:.5f}, valid "
               f"{float(ok.mean()):.4f}")
+        if v == 0:
+            med0, valid0 = med, float(ok.mean())
         if v == 0 and not (med < 0.02 and ok.mean() > 0.5):
             fail("problem 0 misses the bar after the pipeline (median < "
                  "2%, valid > 50%)")
@@ -578,9 +609,259 @@ def pipeline_phase(sc, folder: Path, launches, reset, modules) -> dict:
     shutil.rmtree(cpu_copy, ignore_errors=True)
     if any(m.split(".")[0] in ("jax", "cv2") for m in sys.modules):
         fail("the pipeline loaded jax or cv2")
+    summary = {"seconds": run_s, "sweeps_s": sum(per_iter.values()),
+               "per_iteration_s": [per_iter[i] for i in range(8)],
+               "peak_mib": peak / 2**20, "held_mib": held / 2**20,
+               "median": med0, "valid": valid0, "points": cloud.shape[0],
+               "precision": rep["precision"], "recall": rep["recall"],
+               "fusion_s": fused["s"]}
     return {"all": counts, "rounds": rounds, "fusion": fused["launches"],
             "fusion_sigs": fused["sigs"], "fusion_s": fused["s"],
-            "seen": cap.seen}
+            "seen": cap.seen, "summary": summary}
+
+
+def parallel_phase(sc, folder: Path, launches, reset, modules, seq: dict,
+                   device) -> dict:
+    """Phase 11: the view-parallel path over a one-rank group on ``device``
+    (NCCL on a card) that this phase makes (``tcp://127.0.0.1:<free
+    port>``) and destroys, with every check and print of the module
+    docstring but the kernels' (the caller's, on the captured inputs this
+    returns). ``seq``: phase 9's summary, printed beside 11a's numbers.
+    Returns {"parallel pipeline",
+    "mesh fusion", "tile sweep": launches of each path, "rounds": the
+    parallel pipeline's launches per round, "seen": {path: captured inputs
+    per entry}, "summary": 11a-c's numbers}."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from dpe_mvs_tpu_torch.config import PatchMatchParams, schedule_params
+    from dpe_mvs_tpu_torch.engine import rectcost
+    from dpe_mvs_tpu_torch.engine import state as st_mod
+    from dpe_mvs_tpu_torch.engine.stages import run_sweep_staged
+    from dpe_mvs_tpu_torch.io import formats, scene
+    from dpe_mvs_tpu_torch.parallel import mesh, tiles
+    from dpe_mvs_tpu_torch.pipeline import fusion as fus
+    from dpe_mvs_tpu_torch.pipeline import parallel_schedule as ps
+    from dpe_mvs_tpu_torch.utils.profiling import GLOBAL_TIMER
+    from dpe_mvs_tpu_torch.utils.rng import TorchKey
+    from dpe_mvs_tpu_torch.utils.synthetic import write_scene_folder
+    from tools.torch_eval import backproject_gt, depth_scale, fscore
+
+    phase("11a. the view-parallel pipeline (one NCCL rank)")
+    write_scene_folder(sc, folder)
+    mesh.initialize_distributed(f"127.0.0.1:{mesh.free_port()}", 1, 0,
+                                device=device)
+    out = {"seen": {}, "summary": {}}
+    try:
+        group = mesh.make_group(device)
+        print(f"group: rank {group.rank} of {group.world}, backend "
+              f"{group.backend}, {group.device} (one card: NCCL refuses two "
+              f"ranks on one device, so every collective has one rank)")
+        want = "nccl" if device.type == "cuda" else "gloo"
+        if group.backend != want:
+            fail(f"the phase's group runs {group.backend}, not {want}")
+
+        # Each sweep pass of the runner, synchronised, and each round's
+        # launches (its loading, rectification included).
+        passes, rounds = [], []
+        sweep_fn, round_fn = mesh.sharded_sweep, ps.ParallelRunner.run_round
+
+        def sweep(*args, **kw):
+            torch.cuda.synchronize()
+            ts = time.time()
+            res = sweep_fn(*args, **kw)
+            torch.cuda.synchronize()
+            passes.append(time.time() - ts)
+            return res
+
+        def run_round(self, *args, **kw):
+            before = launches()
+            round_fn(self, *args, **kw)
+            rounds.append({k: v - before[k] for k, v in launches().items()})
+
+        spans0 = dict(GLOBAL_TIMER.totals)
+        mesh.sharded_sweep, ps.ParallelRunner.run_round = sweep, run_round
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with Capture(modules) as cap:
+                reset()
+                t0 = time.time()
+                rc = ps.run_pipeline_parallel(
+                    folder, group=group, verbose=True, fusion=True,
+                    depth=True, normal=True, weak=True, edge=True,
+                    keep_intermediates=True)
+                torch.cuda.synchronize()
+                run_s = time.time() - t0
+                counts = launches()
+        finally:
+            mesh.sharded_sweep, ps.ParallelRunner.run_round = sweep_fn, \
+                round_fn
+        peak = torch.cuda.max_memory_allocated()
+        held = sum(a.untyped_storage().nbytes() for seen in cap.seen.values()
+                   for _, args in seen.values() for a in args)
+        if rc != 0:
+            fail(f"run_pipeline_parallel returned {rc}")
+        if len(passes) != 8:
+            fail(f"expected 2 rounds of 4 passes, ran {len(passes)} passes")
+        spans = {k: v - spans0.get(k, 0.0)
+                 for k, v in GLOBAL_TIMER.totals.items()
+                 if v - spans0.get(k, 0.0) > 0}
+        names = ("A", "B0", "B1", "B2")
+        print(f"seconds per pass ({len(sc.images)} problems, "
+              "synchronised): " + ", ".join(
+            f"round {i // 4} {names[i % 4]} {t:.2f}"
+            for i, t in enumerate(passes)))
+        print(f"parallel pipeline {run_s:.2f} s, sweeps "
+              f"{sum(passes):.2f} s (phase 9, sequential: "
+              f"{seq['seconds']:.2f} s, sweeps {seq['sweeps_s']:.2f} s)")
+        print("spans (GLOBAL_TIMER, CUDA events, s): " + ", ".join(
+            f"{k} {spans.get(k, 0.0):.3f}" for k in (
+                "load", "reinit", "exchange", "sweep", "writeback",
+                "fusion")))
+        for r, n in enumerate(rounds):
+            print(f"launches, round {r}: {n}")
+        print(f"launches: {counts}")
+        for name, n in counts.items():
+            if n <= 0:
+                fail(f"kernel {name} was not launched by the parallel "
+                     f"pipeline")
+        print(f"peak device memory {peak / 2**20:.1f} MiB, of which the "
+              f"captured kernel inputs hold {held / 2**20:.1f} MiB (phase "
+              f"9, sequential: {seq['peak_mib']:.1f} MiB, captured "
+              f"{seq['held_mib']:.1f} MiB)")
+        meds = []
+        for v in range(len(sc.images)):
+            d = np.load(folder / "DPE" / f"{v:08d}" / "depth.npy")
+            gt = sc.gt_depths[v]
+            ok = d > 0
+            med = float(np.median(np.abs(d[ok] - gt[ok]) / gt[ok])) \
+                if ok.any() else float("inf")
+            meds.append((med, float(ok.mean())))
+            print(f"problem {v}: median rel depth error {med:.5f}, valid "
+                  f"{float(ok.mean()):.4f}")
+        med0, valid0 = meds[0]
+        print(f"problem 0: median {med0:.5f}, valid {valid0:.4f} (phase 9: "
+              f"{seq['median']:.5f}, {seq['valid']:.4f}; other keys and "
+              f"Jacobi reads, so no bit comparison)")
+        if not (med0 < 0.02 and valid0 > 0.5):
+            fail("problem 0 misses the bar after the parallel pipeline "
+                 "(median < 2%, valid > 50%)")
+        ply = folder / "DPE" / "DPE.ply"
+        cloud, colors = formats.read_ply(ply)
+        rep = fscore(cloud, backproject_gt(sc), 0.005 * depth_scale(sc))
+        print(f"fused cloud: {cloud.shape[0]} points, precision "
+              f"{rep['precision']}, recall {rep['recall']} (phase 9: "
+              f"{seq['points']} points, precision {seq['precision']}, "
+              f"recall {seq['recall']})")
+        if cloud.shape[0] <= 100_000 or colors.shape != cloud.shape or \
+                not np.isfinite(cloud).all():
+            fail(f"fused cloud of {cloud.shape[0]} points (need > 100000, "
+                 f"finite, one colour each)")
+        if not rep["precision"] > 0.9:
+            fail(f"fused cloud precision {rep['precision']} <= 0.9")
+        out["parallel pipeline"], out["rounds"] = counts, rounds
+        out["seen"]["parallel pipeline"] = cap.seen
+        out["summary"]["11a"] = {
+            "seconds": run_s, "pass_s": passes,
+            "spans_s": spans, "peak_mib": peak / 2**20,
+            "held_mib": held / 2**20, "median": med0, "valid": valid0,
+            "points": cloud.shape[0], "precision": rep["precision"],
+            "recall": rep["recall"]}
+
+        phase("11b. run_fusion_mesh on 11a's maps (one NCCL rank)")
+        problems = scene.generate_sample_list(folder)
+        seq_ply = ply.read_bytes()
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with Capture(modules) as cap:
+            fus.run_fusion_mesh(folder, problems, group, verbose=True)
+            torch.cuda.synchronize()
+        mesh_s = time.time() - t0
+        n_mesh = launches()
+        pts, _ = formats.read_ply(ply)
+        same = ply.read_bytes() == seq_ply
+        rel = abs(pts.shape[0] - cloud.shape[0]) / cloud.shape[0]
+        passes = n_mesh["gather2d_hwc"] / max(
+            3 * sum(len(p.src_image_ids) for p in problems), 1)
+        print(f"mesh fusion: {mesh_s:.2f} s ({passes:g} vote passes), "
+              f"{pts.shape[0]} points against run_fusion's {cloud.shape[0]} "
+              f"on the same maps (relative difference {rel:.5f}; the same "
+              f"file: {same}); launches {n_mesh}")
+        if rel > 0.01:
+            fail("mesh fusion's point count is not within 1% of run_fusion's")
+        if n_mesh["gather2d_hwc"] <= 0:
+            fail("mesh fusion did not launch gather2d_hwc")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fus.run_fusion_mesh(folder, problems, group, max_passes=2)
+        torch.cuda.synchronize()
+        two_s = time.time() - t0
+        n_two = formats.read_ply(ply)[0].shape[0]
+        print(f"the JAX package's two passes (max_passes=2): {two_s:.2f} s, "
+              f"{n_two} points ({n_two / cloud.shape[0] - 1:+.4f} against "
+              f"run_fusion's)")
+        out["mesh fusion"] = n_mesh
+        out["seen"]["mesh fusion"] = cap.seen
+        out["summary"]["11b"] = {
+            "seconds": mesh_s, "passes": passes, "points": pts.shape[0],
+            "run_fusion_points": cloud.shape[0], "same_file": same,
+            "two_pass_s": two_s, "two_pass_points": n_two}
+
+        phase("11c. tile_sharded_sweep, one tile (one card), problem 0 "
+              "pass A")
+        inputs = sc.problem_inputs(0)
+        v_pad = len(sc.images) - 1
+        params = schedule_params(PatchMatchParams(), 0, None)
+        gt = sc.gt_depths[0]
+        torch.cuda.synchronize()
+        t0 = time.time()
+        rh = rectcost.build_rect_host(inputs.cameras, inputs.width,
+                                      inputs.height, v_pad)
+        data = st_mod.build_sweep_data(inputs, v_pad, device=device).replace(
+            rect=rectcost.build_rect_views(rh, inputs.images, device))
+        st = run_sweep_staged(data, st_mod.init_pm_state(
+            inputs, v_pad, TorchKey(0, device), False, device), params,
+            rstat=rh.statics)
+        rel_ref = np.abs(st.plane[..., 3].cpu().numpy() - gt) / gt
+        torch.cuda.synchronize()
+        ref_s = time.time() - t0
+        del data, st
+        reset()
+        t0 = time.time()
+        with Capture(modules) as cap:
+            data, rstat, hb = tiles.build_tile_data(inputs, 1, 0, v_pad,
+                                                    device=device)
+            tile = tiles.build_tile_inputs(inputs, 1)[0][0]
+            st = tiles.tile_sharded_sweep(group, data, st_mod.init_pm_state(
+                tile, v_pad, TorchKey(10, device), False, device), params,
+                rstat, hb)
+            st = tiles.stitch_tiles(group, st, inputs.height)
+            torch.cuda.synchronize()
+        tile_s = time.time() - t0
+        n_tile = launches()
+        rel_tile = np.abs(st.plane[..., 3].cpu().numpy() - gt) / gt
+        med_ref, med_tile = float(np.median(rel_ref)), float(
+            np.median(rel_tile))
+        print(f"one tile of {tile.height} rows (halo {tiles.HALO}, never "
+              f"exchanged with one tile): {tile_s:.2f} s, median rel depth "
+              f"error {med_tile:.5f}; unsharded sweep {ref_s:.2f} s, "
+              f"{med_ref:.5f}; launches {n_tile}")
+        if not (med_ref < 0.01 and med_tile < max(2.0 * med_ref, 0.01)):
+            fail("the tile sweep misses tests/test_tiles.py's bars (median "
+                 "< 0.01; tile median < max(2 x unsharded, 0.01))")
+        for name in ("row_gather", "bilinear_x"):
+            if n_tile[name] <= 0:
+                fail(f"the tile sweep did not launch {name}")
+        out["tile sweep"] = n_tile
+        out["seen"]["tile sweep"] = cap.seen
+        out["summary"]["11c"] = {"seconds": tile_s, "median": med_tile,
+                                 "unsharded_s": ref_s,
+                                 "unsharded_median": med_ref}
+    finally:
+        dist.destroy_process_group()
+    return out
 
 
 @contextlib.contextmanager
@@ -1505,9 +1786,11 @@ def main() -> None:
 
     # Phase 10: the exact engine on the same scene, in memory.
     rect_s = {k: statistics.median(v) for k, v in sweep_s.items()}
+    # Left after 10b: 10c, 10d and phase 11 (about one more pipeline).
     ex = exact_phase(sc, out_dir / "exact", cfg, v_pad, launches, reset,
                      modules, t_start, lambda ea, eb: SIDE_PAIRS * (
-                         rect_s["A"] + rect_s["B"] + ea + eb) + 60.0)
+                         rect_s["A"] + rect_s["B"] + ea + eb) + 60.0
+                     + launches_p["summary"]["seconds"] + 60.0)
 
     phase("10c. kernels at the exact engine's shapes")
     scratch = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
@@ -1527,6 +1810,16 @@ def main() -> None:
                        v_pad, launches, reset)
     print(json.dumps({"engines_side_by_side": cmp}))
 
+    par = parallel_phase(sc, out_dir / "parallel", launches, reset, modules,
+                         launches_p["summary"], torch.device("cuda", 0))
+    for path, seen in par.pop("seen").items():
+        for name in modules:
+            check(name, seen[name], path)
+        print(f"{path}: bit-exact at every shape (" + ", ".join(
+            f"{n} {len(seen[n])}" for n in modules) + ")")
+    print(json.dumps({"parallel_vs_sequential": {
+        "sequential": launches_p["summary"], **par["summary"]}}))
+
     for rec in kernels:
         name = rec["name"]
         rec["launches"] = launches_p["all"][name]
@@ -1536,7 +1829,12 @@ def main() -> None:
             **{f"pipeline round {i}": n[name]
                for i, n in enumerate(launches_p["rounds"])},
             "pipeline fusion": launches_p["fusion"][name],
-            "exact pass A": ex["a"][name], "exact pass B": ex["b"][name]}
+            "exact pass A": ex["a"][name], "exact pass B": ex["b"][name],
+            "parallel pipeline": par["parallel pipeline"][name],
+            **{f"parallel pipeline round {i}": n[name]
+               for i, n in enumerate(par["rounds"])},
+            "mesh fusion": par["mesh fusion"][name],
+            "tile sweep": par["tile sweep"][name]}
         if name in exact_recs:
             rec["exact"] = exact_recs[name]
     print(f"script time {time.time() - t_start:.1f} s")

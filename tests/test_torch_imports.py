@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing every module of
 ``dpe_mvs_tpu_torch`` (among them ``api``, ``cli``, ``pipeline.fusion``,
-``utils.viz`` and ``io.colmap``), ``chip_smoke`` and ``tools/torch_eval``
+``utils.viz``, ``io.colmap``, ``parallel.mesh``, ``parallel.tiles`` and
+``pipeline.parallel_schedule``), ``chip_smoke`` and ``tools/torch_eval``
 loads neither ``jax``, nor any module of the JAX package ``dpe_mvs_tpu``,
 nor ``cv2`` (the machine with the card has none of them), and neither does
 reading and writing PNG images through ``io/imread``; Pillow (``PIL``) is
@@ -44,11 +45,13 @@ def test_port_imports_no_jax_and_no_jax_package():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     n = int(res.stdout.split()[0])
-    assert n >= 33, res.stdout          # every module of the port was seen
+    assert n >= 36, res.stdout          # every module of the port was seen
     names = res.stdout.splitlines()[1].split()
     for mod in ("api", "cli", "edges.dual_level", "edges.imgproc",
                 "io.imread", "io.scene", "utils.profiling",
-                "pipeline.fusion", "utils.viz", "io.colmap"):
+                "pipeline.fusion", "utils.viz", "io.colmap",
+                "parallel.mesh", "parallel.tiles",
+                "pipeline.parallel_schedule"):
         assert f"dpe_mvs_tpu_torch.{mod}" in names
 
 

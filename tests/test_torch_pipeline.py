@@ -476,10 +476,20 @@ def test_use_rect_picks_the_engine(use_rect, tmp_path, monkeypatch):
     tschedule._RECT_HOSTS.clear()
 
 
-def test_unported_options_raise(tmp_path):
+def test_unported_options_raise(tmp_path, monkeypatch):
+    """Every option of the JAX package's ``dpe_mvs`` is ported now:
+    ``parallel=True`` no longer raises NotImplementedError; on the CPU
+    without a process group it runs the sequential pipeline (the API's
+    case (c), ``tests/test_torch_parallel.py`` has the others). Without a
+    card, the default device still raises."""
     _, folder = _folder(tmp_path / "s", width=48, height=36)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        tapi.dpe_mvs(str(folder), device="cpu", parallel=True)
+    calls = []
+    run = tschedule.run_pipeline
+    monkeypatch.setattr(tschedule, "run_pipeline",
+                        lambda f, **kw: calls.append(kw) or 0)
+    assert tapi.dpe_mvs(str(folder), device="cpu", parallel=True) == 0
+    assert [kw["device"] for kw in calls] == [torch.device("cpu")]
+    monkeypatch.setattr(tschedule, "run_pipeline", run)
     if not torch.cuda.is_available():        # the card is the default
         with pytest.raises(RuntimeError, match="CUDA"):
             tapi.dpe_mvs(str(folder))
