@@ -9,7 +9,8 @@ all 6 problems, then the modal pass B (``schedule_params(base, 1, 0)``:
 REFINE_ITER, weak machinery, edges and geometric consistency) for all 6,
 reading each problem's priors and its sources' depths back from the pass-A
 writeback; then written to a dense folder and run through the whole
-pipeline by the CLI, as a user runs it. Phases:
+pipeline by the CLI, as a user runs it; then frames of 1600x1200 and
+3200x2400 (phase 12). Phases:
 
   1. the card's name and power limit (nvidia-smi);
   2. build the kernels from ``dpe_mvs_tpu_torch/csrc`` (one nvcc per source,
@@ -119,9 +120,10 @@ pipeline by the CLI, as a user runs it. Phases:
      phase makes on a local rendezvous and destroys at its end (one card:
      NCCL refuses two ranks on one device, so every collective has one
      rank):
-     a. ``run_pipeline_parallel`` with fusion on a fresh copy of phase 9's
-        dense folder (2 rounds of 4 passes over the 6 problems, the state on
-        the card for a round, the exchange between passes), counters set to
+     a. ``run_pipeline_parallel`` with fusion on a dense folder of the first
+        PARALLEL_VIEWS (3) views of phase 9's scene (2 rounds of 4 passes
+        over 3 problems, the state on the card for a round, the exchange
+        between passes; a cut of depth that pays for phase 12), counters set to
         0 just before and read just after, inside :class:`Capture`: all five
         kernel entries must have launched; seconds per pass and in all, the
         runner's spans (load, reinit, exchange, sweep, writeback, fusion),
@@ -138,14 +140,42 @@ pipeline by the CLI, as a user runs it. Phases:
         max(2 x unsharded, 0.01)).
      Every kernel entry bit-exact against its plain version at every shape
      11a-c gave it; their numbers beside phase 9's as one JSON line
-     (``parallel_vs_sequential``).
+     (``parallel_vs_sequential``);
+ 12. full-resolution frames (run after phase 9, before phase 10, so that
+     its time counts in 10b's projection), through ``process_problem``:
+     a. ``make_plane_scene(width=1600, height=1200, num_views=6, seed=7)``
+        (the final round of a 2-round schedule): round-0 pass A for all six
+        problems, then the modal pass B of problem 0 on that writeback with
+        the stand-in support maps of phase 7;
+     b. the same at 3200x2400: problem 0's pass A, then its modal pass B,
+        the sources' depth maps their ground truth written as their
+        ``depths.dmb`` (in place of six 7.7 MP pass-A sweeps).
+     Per sweep: seconds, synchronised stage spans, launches per kernel
+     entry, the full-resolution branches taken
+     (``utils.profiling.BRANCHES``), the memory allocated and free before it
+     and its peak (``max_memory_allocated``, reset before each sweep).
+     Counters set to 0 before each pass and read after it. Bars: problem 0
+     meets phase 6's bar after pass A and phase 7's after pass B; pass A
+     launches both row kernels, pass B all five entries; pass B streams
+     its anchor profiles (``AP_STORE_MAX_PX``), regathers ``a_d0``
+     (``A_D0_STORE_MAX_PX``) and bands the weak body (``_weak_band_count``
+     > 1), and at 3200x2400 pass A stores bf16 screening volumes, scans its
+     view-selection draws (``patchmatch.FULLRES_PX``) and bands the rect
+     cost field (``rectcost.band_rows``); ``gather2d`` reads a channel over
+     6 MiB (TPU kernel row 4's regime). Every kernel entry is compared bit
+     for bit with its plain version at the first launch of each shape
+     (:class:`FirstLaunchCheck`: no copies kept, unlike :class:`Capture`),
+     and row 4's real shape is timed (kernel, library call, plain version in
+     turns, L2-cold) beside its bound. One JSON line (``fullres``) before
+     the kernels line.
 
 Exits non-zero, without the result lines, when there is no CUDA device or
 any phase fails. The line before the last holds the kernel records as JSON
 (``launches``: the pipeline's, fusion's included; ``launches_by_path``:
 every path's, the exact engine's passes as "exact pass A" / "exact pass B",
 phase 11's as "parallel pipeline" (and per round), "mesh fusion" and "tile
-sweep";
+sweep", phase 12's as "fullres <frame> pass A" / "... pass B"; ``gather2d``
+adds ``row4_real_paths``, row 4's real shapes timed in phase 12;
 ``exact``: phase 10c's timings); the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -171,12 +201,16 @@ EXACT_BUDGET_S = 800               # phase 10b runs every problem if the
                                    # script is projected to stay under
                                    # this in all (phase 11 included)
 SIDE_PAIRS = 3                     # phase 10d: (rect, exact) pairs per pass
+PARALLEL_VIEWS = 3                 # phase 11a-b: views of phase 9's scene
 # Staging thresholds whose per-sweep time phase 8 reports: the plan stages
 # where L >= r * W (inf: never).
 REUSE_CHOICES = (0.25, 0.5, 1, 2, 4, 8, 16, float("inf"))
 GATHERS = ("gather2d", "gather2d_hwc", "gather2d_pick")
 FLUSH_BYTES = 256 * 2**20          # > 5x the 50 MB L2
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM (NVIDIA data sheet)
+FULLRES = ((1600, 1200), (3200, 2400))   # phase 12a, 12b frames
+ROW4_CHANNEL_BYTES = 6 * 2**20     # the JAX package's gather2d switches to
+                                   # its HBM kernel (TPU row 4) above this
 F32_OPS_PER_S = 67e12              # float32 outside the tensor cores (same)
 SOURCES = {"row_gather": "dpe_mvs_tpu_torch/csrc/rowgather.cu",
            "bilinear_x": "dpe_mvs_tpu_torch/csrc/rowgather.cu",
@@ -621,12 +655,15 @@ def pipeline_phase(sc, folder: Path, launches, reset, modules) -> dict:
 
 
 def parallel_phase(sc, folder: Path, launches, reset, modules, seq: dict,
-                   device) -> dict:
+                   device, views: int = PARALLEL_VIEWS) -> dict:
     """Phase 11: the view-parallel path over a one-rank group on ``device``
     (NCCL on a card) that this phase makes (``tcp://127.0.0.1:<free
     port>``) and destroys, with every check and print of the module
     docstring but the kernels' (the caller's, on the captured inputs this
-    returns). ``seq``: phase 9's summary, printed beside 11a's numbers.
+    returns). 11a and 11b run on the first ``views`` views of ``sc`` (a
+    copy of phase 9's scene with fewer views: the same bars, half the
+    sweeps at 3 of 6), 11c on ``sc``. ``seq``: phase 9's summary, printed
+    beside 11a's numbers.
     Returns {"parallel pipeline",
     "mesh fusion", "tile sweep": launches of each path, "rounds": the
     parallel pipeline's launches per round, "seen": {path: captured inputs
@@ -647,7 +684,13 @@ def parallel_phase(sc, folder: Path, launches, reset, modules, seq: dict,
     from dpe_mvs_tpu_torch.utils.synthetic import write_scene_folder
     from tools.torch_eval import backproject_gt, depth_scale, fscore
 
-    phase("11a. the view-parallel pipeline (one NCCL rank)")
+    sc_all = sc
+    sc = dataclasses.replace(sc, images=sc.images[:views],
+                             cameras=sc.cameras[:views],
+                             gt_depths=sc.gt_depths[:views],
+                             gt_normals=sc.gt_normals[:views])
+    phase(f"11a. the view-parallel pipeline (one NCCL rank), views 0-"
+          f"{views - 1} of phase 9's {len(sc_all.images)}")
     write_scene_folder(sc, folder)
     mesh.initialize_distributed(f"127.0.0.1:{mesh.free_port()}", 1, 0,
                                 device=device)
@@ -811,10 +854,10 @@ def parallel_phase(sc, folder: Path, launches, reset, modules, seq: dict,
 
         phase("11c. tile_sharded_sweep, one tile (one card), problem 0 "
               "pass A")
-        inputs = sc.problem_inputs(0)
-        v_pad = len(sc.images) - 1
+        inputs = sc_all.problem_inputs(0)
+        v_pad = len(sc_all.images) - 1
         params = schedule_params(PatchMatchParams(), 0, None)
-        gt = sc.gt_depths[0]
+        gt = sc_all.gt_depths[0]
         torch.cuda.synchronize()
         t0 = time.time()
         rh = rectcost.build_rect_host(inputs.cameras, inputs.width,
@@ -861,6 +904,260 @@ def parallel_phase(sc, folder: Path, launches, reset, modules, seq: dict,
                                  "unsharded_median": med_ref}
     finally:
         dist.destroy_process_group()
+    return out
+
+
+class FirstLaunchCheck:
+    """Wraps the kernel entries during a run without keeping copies (unlike
+    :class:`Capture`, which would hold gigabytes at 3200x2400): on the first
+    launch of each shape signature the kernel's output is compared, bit for
+    bit, with its plain version on the same inputs, and the plain output is
+    freed at once. The launch itself is the run's own, so it counts. Also
+    notes the largest channel ``gather2d`` read and keeps a reference (no
+    copy) to the inputs of the first ``gather2d`` launch whose channel
+    exceeds ROW4_CHANNEL_BYTES (TPU kernel row 4's regime), for timing."""
+
+    def __init__(self, entries, plain, exact):
+        self.entries, self.plain, self.exact = entries, plain, exact
+        self.orig = {n: getattr(m, n) for n, m in entries.items()}
+        self.checked = {n: set() for n in entries}
+        self.max_channel_bytes = 0
+        self.row4 = None
+
+    def _wrap(self, name):
+        fn, ref = self.orig[name], self.plain[name]
+        checked = self.checked[name]
+
+        def wrapped(*args):
+            out = fn(*args)
+            sig = tuple((tuple(a.shape), str(a.dtype), tuple(a.stride()))
+                        for a in args)
+            if sig not in checked:
+                checked.add(sig)
+                want = ref(*args)
+                self.exact(name, out, want, f"{sig} (first launch)")
+                del want
+            if name == "gather2d":
+                img = args[0]
+                ch = img.shape[-1] * img.shape[-2] * img.element_size()
+                self.max_channel_bytes = max(self.max_channel_bytes, ch)
+                if ch > ROW4_CHANNEL_BYTES and self.row4 is None:
+                    self.row4 = args
+            return out
+        return wrapped
+
+    def __enter__(self):
+        for n, m in self.entries.items():
+            setattr(m, n, self._wrap(n))
+        return self
+
+    def __exit__(self, *exc):
+        for n, m in self.entries.items():
+            setattr(m, n, self.orig[n])
+
+
+def fullres_phase(out_dir: Path, cfg, launches, reset, modules, plain,
+                  exact) -> dict:
+    """Phase 12: full-resolution frames, 12a at 1600x1200 and 12b at
+    3200x2400 (FULLRES), 6 views each, through ``process_problem`` inside
+    :class:`FirstLaunchCheck`. ``exact(name, a, b, where)`` fails the script
+    unless a equals b bit for bit. Returns {"launches":
+    {path: launches}, "row4": [timing records], "summary": what the
+    ``fullres`` line prints}."""
+    import numpy as np
+    import torch
+    from dpe_mvs_tpu_torch.config import PatchMatchParams, schedule_params
+    from dpe_mvs_tpu_torch.engine import patchmatch as tpm
+    from dpe_mvs_tpu_torch.engine import rectcost, weak_rect
+    from dpe_mvs_tpu_torch.io import formats, scene
+    from dpe_mvs_tpu_torch.pipeline import schedule as sch
+    from dpe_mvs_tpu_torch.utils.profiling import BRANCHES
+    from dpe_mvs_tpu_torch.utils.synthetic import make_plane_scene, \
+        support_maps
+
+    base = PatchMatchParams()
+    params_a = schedule_params(base, 0, None)
+    params_b = schedule_params(base, 1, 0)
+    device = torch.device("cuda")
+    v_pad = VIEWS - 1
+    out = {"launches": {}, "row4": [], "summary": {}}
+
+    def sweep(p, params, **kw):
+        """One synchronised sweep: seconds, stage spans, launches, branches
+        taken, memory free before it and its peak."""
+        spans = {}
+
+        @contextlib.contextmanager
+        def timer(name):
+            torch.cuda.synchronize()
+            ts = time.time()
+            yield
+            torch.cuda.synchronize()
+            spans[name] = spans.get(name, 0.0) + time.time() - ts
+
+        torch.cuda.synchronize()
+        free = torch.cuda.mem_get_info()[0]
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = launches()
+        BRANCHES.clear()
+        ts = time.time()
+        sch.process_problem(p, params, 1, 1, v_pad, cfg, device=device,
+                            timer=timer, **kw)
+        torch.cuda.synchronize()
+        rec = {"problem": p.ref_image_id, "seconds": time.time() - ts,
+               "spans_s": spans,
+               "launches": {k: v - before[k] for k, v in launches().items()},
+               "branches": dict(BRANCHES), "free_before_mib": free / 2**20,
+               "allocated_before_mib": held / 2**20,
+               "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+        print(f"problem {p.ref_image_id}: {rec['seconds']:.2f} s, peak "
+              f"{rec['peak_mib']:.1f} MiB (before it: {held / 2**20:.1f} MiB "
+              f"allocated, {free / 2**20:.1f} MiB free on the card); "
+              f"launches {rec['launches']}; branches "
+              f"{rec['branches']}\n  spans (s, synchronised): " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in spans.items()), flush=True)
+        return rec
+
+    def depth_stats(sc, p):
+        depth = formats.read_dmb(p.result_folder / "depths.dmb")
+        gt = sc.gt_depths[p.ref_image_id]
+        if depth.shape != gt.shape or not np.isfinite(depth).all():
+            fail(f"problem {p.ref_image_id}: bad depth map")
+        ok = depth > 0
+        med = float(np.median(np.abs(depth[ok] - gt[ok]) / gt[ok])) \
+            if ok.any() else float("inf")
+        return med, float(ok.mean())
+
+    def need(label, rec, names):
+        for name in names:
+            if rec["branches"].get(name, 0) <= 0:
+                fail(f"{label} did not take the {name} branch: "
+                     f"{rec['branches']}")
+
+    for (w, h), tag in zip(FULLRES, "ab"):
+        label = f"{w}x{h}"
+        phase(f"12{tag}. full-resolution frames: {label}x{VIEWS}")
+        t0 = time.time()
+        # One round's rect hosts, built by pass A, reused by pass B (the
+        # pipeline's per-round cache).
+        sch._RECT_HOSTS.clear()
+        sc = make_plane_scene(width=w, height=h, num_views=VIEWS, seed=SEED)
+        folder = out_dir / label
+        problems = [scene.Problem(index=i, ref_image_id=i,
+                                  src_image_ids=sc.src_ids(i),
+                                  dense_folder=folder)
+                    for i in range(VIEWS)]
+        st = rectcost.build_rect_host(sc.problem_inputs(0).cameras, w, h,
+                                      v_pad).statics
+        print(f"scene rendered in {time.time() - t0:.1f} s; problem 0's "
+              f"rect frame {st.wp}x{st.hp}; gates: rect bands over "
+              f"{rectcost.BAND_FULL_BYTES:g} B, anchor profiles streamed over "
+              f"{weak_rect.AP_STORE_MAX_PX} px, a_d0 regathered over "
+              f"{weak_rect.A_D0_STORE_MAX_PX} px, weak bands "
+              f"{weak_rect._weak_band_count(h, w)}, bf16 screening and "
+              f"scanned draws over {tpm.FULLRES_PX} px", flush=True)
+        # 12a: every problem's pass A; 12b: problem 0's.
+        ids = range(VIEWS) if tag == "a" else (0,)
+        recs = {"A": [], "B": []}
+        with FirstLaunchCheck(modules, plain, exact) as chk:
+            reset()
+            for i in ids:
+                recs["A"].append(sweep(problems[i], params_a,
+                                       inputs=sc.problem_inputs(i)))
+            n_a = launches()
+            med_a, valid_a = depth_stats(sc, problems[0])
+            print(f"pass A launches {n_a}; problem 0: median rel depth "
+                  f"error {med_a:.5f}, valid {valid_a:.4f}", flush=True)
+            if not (med_a < 0.02 and valid_a > 0.5):
+                fail(f"{label}: problem 0 misses phase 6's bar after pass A")
+            for name in ("row_gather", "bilinear_x"):
+                if n_a[name] <= 0:
+                    fail(f"{label} pass A did not launch {name}")
+            if tag == "b":
+                need(f"{label} pass A", recs["A"][0],
+                     ("bf16 screening", "scanned draws",
+                      "banded cost evaluations"))
+                # The sources' depth maps: their ground truth, written as
+                # their .dmb (what six 7.7 MP pass-A sweeps would write).
+                for p in problems[1:]:
+                    p.result_folder.mkdir(parents=True, exist_ok=True)
+                    formats.write_dmb(p.result_folder / "depths.dmb",
+                                      sc.gt_depths[p.ref_image_id])
+                print("pass B reads the sources' ground-truth depth maps, "
+                      "written as their depths.dmb, in place of their "
+                      "pass-A writeback", flush=True)
+            p0 = problems[0]
+            ids0 = [0] + sc.src_ids(0)
+            inp = scene.add_pass_inputs(
+                sc.problem_inputs(0), p0.result_folder,
+                [problems[i].result_folder for i in ids0],
+                **sch.pass_needs(params_b))
+            maps = support_maps(inp.images[0])
+            p0.iteration = 1
+            reset()
+            recs["B"].append(sweep(p0, params_b, inputs=inp,
+                                   support_maps=maps))
+            n_b = launches()
+            del inp, maps
+        med_b, valid_b = depth_stats(sc, p0)
+        print(f"pass B launches {n_b}; problem 0: median rel depth error "
+              f"{med_b:.5f}, valid {valid_b:.4f} (pass A {med_a:.5f})",
+              flush=True)
+        if not (med_b < 0.02 and valid_b > 0.5 and med_b <= med_a + 0.003):
+            fail(f"{label}: problem 0 misses phase 7's bar after pass B")
+        for name, n in n_b.items():
+            if n <= 0:
+                fail(f"{label} pass B did not launch {name}")
+        need(f"{label} pass B", recs["B"][0],
+             ("streamed anchor profiles", "regathered a_d0", "weak bands"))
+        if chk.max_channel_bytes <= ROW4_CHANNEL_BYTES or chk.row4 is None:
+            fail(f"{label}: gather2d read no channel over "
+                 f"{ROW4_CHANNEL_BYTES} bytes (largest "
+                 f"{chk.max_channel_bytes})")
+        checked = {n: len(s) for n, s in chk.checked.items()}
+        print(f"bit-exact against the plain versions at the first launch "
+              f"of every shape: {checked}", flush=True)
+
+        # TPU kernel row 4 at its real shape: kernel, library call and
+        # plain version in turns, L2-cold, beside the bound.
+        args = chk.row4
+        scratch = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
+                              device=device)
+
+        def flush():
+            scratch.fill_(1.0)
+            scratch.sum()
+        fns = {"kernel": lambda: modules["gather2d"].gather2d(*args),
+               "library": library_call("gather2d", args),
+               "plain": lambda: plain["gather2d"](*args)}
+        t = time_turns(fns, flush=flush)
+        b_ms, b_by = bound("gather2d", args)
+        shape = (f"{tuple(args[0].shape)} int32 words "
+                 f"({args[0][0].numel() * 4 / 2**20:.1f} MiB a channel), "
+                 f"queries {tuple(args[1].shape)}")
+        print(f"gather2d, row 4's real shape ({label} pass B, the streamed "
+              f"anchor profiles): {shape}; cold ms kernel {t['kernel']:.4f}, "
+              f"library {t['library']:.4f}, plain {t['plain']:.4f}; bound "
+              f"{b_ms:.4f} ms ({b_by}), {b_ms / t['kernel']:.0%} of it",
+              flush=True)
+        row4 = {"frame": label, "shape": shape, "cold_ms": t["kernel"],
+                "library_cold_ms": t["library"], "plain_cold_ms": t["plain"],
+                "bound_ms": b_ms, "bound_by": b_by,
+                "launches_pass_b": n_b["gather2d"]}
+        out["row4"].append(row4)
+        del args, fns, chk, scratch
+        out["launches"][f"{label} pass A"] = n_a
+        out["launches"][f"{label} pass B"] = n_b
+        out["summary"][label] = {
+            "rect_frame": [st.wp, st.hp], "pass_a": recs["A"],
+            "pass_b": recs["B"], "median_a": med_a, "valid_a": valid_a,
+            "median_b": med_b, "valid_b": valid_b,
+            "checked_shapes": checked, "row4": row4,
+            "seconds": time.time() - t0}
+        del sc, problems
+        sch._RECT_HOSTS.clear()
+        shutil.rmtree(folder, ignore_errors=True)
     return out
 
 
@@ -1784,13 +2081,20 @@ def main() -> None:
                              "fusion_s": launches_p["fusion_s"]}
     del launches_p["seen"]
 
+    # Phase 12 before phase 10: its time counts in 10b's projection.
+    full = fullres_phase(out_dir / "fullres", cfg, launches, reset, modules,
+                         plain, exact)
+    print(f"phase 12: {sum(v['seconds'] for v in full['summary'].values()):.1f}"
+          f" s; script time so far {time.time() - t_start:.1f} s")
+
     # Phase 10: the exact engine on the same scene, in memory.
     rect_s = {k: statistics.median(v) for k, v in sweep_s.items()}
-    # Left after 10b: 10c, 10d and phase 11 (about one more pipeline).
+    # Left after 10b: 10c, 10d and phase 11 (about half a pipeline: 11a
+    # runs 3 of the 6 views).
     ex = exact_phase(sc, out_dir / "exact", cfg, v_pad, launches, reset,
                      modules, t_start, lambda ea, eb: SIDE_PAIRS * (
                          rect_s["A"] + rect_s["B"] + ea + eb) + 60.0
-                     + launches_p["summary"]["seconds"] + 60.0)
+                     + 0.5 * launches_p["summary"]["seconds"] + 60.0)
 
     phase("10c. kernels at the exact engine's shapes")
     scratch = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
@@ -1834,15 +2138,20 @@ def main() -> None:
             **{f"parallel pipeline round {i}": n[name]
                for i, n in enumerate(par["rounds"])},
             "mesh fusion": par["mesh fusion"][name],
-            "tile sweep": par["tile sweep"][name]}
+            "tile sweep": par["tile sweep"][name],
+            **{f"fullres {path}": n[name]
+               for path, n in full["launches"].items()}}
         if name in exact_recs:
             rec["exact"] = exact_recs[name]
+        if name == "gather2d":
+            rec["row4_real_paths"] = full["row4"]
     print(f"script time {time.time() - t_start:.1f} s")
 
     shutil.rmtree(out_dir, ignore_errors=True)
     if any(m.split(".")[0] in ("jax", "cv2", "dpe_mvs_tpu")
            for m in sys.modules):
         fail("the port imported jax, cv2 or the JAX package")
+    print(json.dumps({"fullres": full["summary"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

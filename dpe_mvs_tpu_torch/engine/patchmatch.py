@@ -27,6 +27,7 @@ from ..config import COST_MAX, GEOM_COST_MAX, PatchMatchParams, \
 from ..geometry import cameras as geo
 from ..ops import checker, ncc, sampling, support
 from ..ops import planes as planegen
+from ..utils.profiling import BRANCHES
 from .state import PMState, SweepData
 
 WEAK = int(PixelState.WEAK)
@@ -36,6 +37,11 @@ BIG = float(1e30)
 # Elements of one temporary of a batched cost evaluation (candidates x views
 # x window samples x centres): candidate groups stay under it.
 BATCH_ELEMS = 1 << 25
+# Frames of more pixels are full-resolution frames: view selection draws its
+# 15 Monte-Carlo samples one at a time and the strong iteration stores its
+# screening volumes as bf16 (``strong_rect.propagate_strong_rect``). The JAX
+# package's literal 4_000_000; module-level so that tests can force both.
+FULLRES_PX = 4_000_000
 
 
 class Support(NamedTuple):
@@ -438,9 +444,11 @@ def view_selection(key, cost_array: torch.Tensor, prior: torch.Tensor,
 
     H, W = cost_array.shape[2:]
     views = torch.arange(nview, device=dev)
-    if H * W > 4_000_000:
+    if H * W > FULLRES_PX:
         # Full-resolution frames: accumulate the 15 Monte-Carlo draws one at
-        # a time instead of materializing (15, V, H, W) hit masks.
+        # a time instead of materializing (15, V, H, W) hit masks; draw i
+        # from the i-th key of ``key.split(15)``, as the JAX package's scan.
+        BRANCHES["scanned draws"] += 1
         view_weight = torch.zeros((nview, H, W), dtype=torch.int32,
                                   device=dev)
         for key_i in key.split(15):

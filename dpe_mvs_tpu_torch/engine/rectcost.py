@@ -19,8 +19,13 @@ error against the source views' depth maps, rectified into each view's rect
 frame (:func:`rectify_src_depths`), is added with weight ``geom_factor``
 (``ComputeGeomConsistencyCost``, DPE.cu:915-953).
 
+Frames whose view-stacked cost field exceeds ``BAND_FULL_BYTES`` are
+evaluated in row bands (:func:`band_rows`), which bounds the memory of the
+offset accumulation at full-resolution frames and changes no number: every
+read is row-local in the rect frame.
+
 Not ported (TPU workarounds that give the same results): the stacked
-runtime-flag warps, the row banding and the optimization barriers.
+runtime-flag warps and the optimization barriers.
 """
 from __future__ import annotations
 
@@ -37,7 +42,15 @@ from ..ops import rowgather
 from ..ops import warp as warp_ops
 from ..ops.ncc import K_MIN_VAR
 from ..ops.sampling import shift as _shift3
+from ..utils.profiling import BRANCHES
 
+# Row banding of the stacked cost evaluation: a (V, Hs, Ws) float32 field
+# over BAND_FULL_BYTES is evaluated in row bands of BAND_FIELD_BYTES per
+# field (the JAX package's constants). Module-level so that tests can force
+# banding on small frames.
+BAND_FULL_BYTES = 96e6
+BAND_FIELD_BYTES = 48e6
+GATHER_BYTES = 256e6   # bound of one bilinear_x launch's queries
 BIG = float(1e30)
 S_CHUNK = 8        # probes per row-gather launch (bounds transient memory)
 VOL_INVALID = 1e4  # marker for invalid volume entries (bf16-exact)
@@ -87,15 +100,18 @@ class RectHost(NamedTuple):
     statics: RectStatics
 
 
-def _src_warp_fields(pair: rectify.RectPair, width: int, height: int):
+def _src_warp_fields(pair: rectify.RectPair, width: int, height: int,
+                     device=None):
     return rectify.build_warp_fields(pair.H_src, width, height,
-                                     pair.width, pair.height)
+                                     pair.width, pair.height, device)
 
 
 def build_rect_host(cameras: Sequence, width: int, height: int, v_pad: int,
                     max_scale: float = 1.6,
-                    force_size: Optional[Tuple[int, int]] = None) -> RectHost:
-    """Rectify every (ref, src) pair of a problem on the host (numpy).
+                    force_size: Optional[Tuple[int, int]] = None,
+                    device=None) -> RectHost:
+    """Rectify every (ref, src) pair of a problem; the result is host-side
+    (numpy), its warp fields evaluated on ``device`` (the CPU by default).
 
     ``cameras``: [ref, src...] objects with .K/.R/.t numpy arrays. Padding
     views replicate the last real pair (masked out at cost time by
@@ -126,10 +142,11 @@ def build_rect_host(cameras: Sequence, width: int, height: int, v_pad: int,
 
     fwd, bwd, sfwd = [], [], []
     for p in pairs:
-        fwd.append(rectify.build_warp_fields(p.H_ref, width, height, wp, hp))
+        fwd.append(rectify.build_warp_fields(p.H_ref, width, height, wp, hp,
+                                             device))
         bwd.append(rectify.build_warp_fields(
-            np.linalg.inv(p.H_ref), wp, hp, width, height))
-        sfwd.append(_src_warp_fields(p, width, height))
+            np.linalg.inv(p.H_ref), wp, hp, width, height, device))
+        sfwd.append(_src_warp_fields(p, width, height, device))
     statics = RectStatics(
         f_transposed=tuple(w.transposed_input for w in fwd),
         b_transposed=tuple(w.transposed_input for w in bwd),
@@ -248,8 +265,8 @@ def rectify_src_depths(views: Tuple[RectView, ...], rh: RectHost,
     for i, rv in enumerate(views):
         src_i = min(i, n_src - 1)
         sf = rh.sfwd[i]
-        factor = torch.as_tensor(rectify.src_depth_factor(
-            rh.pairs[i], cameras[1 + src_i].K, W, H), device=dev)
+        factor = rectify.src_depth_factor(rh.pairs[i], cameras[1 + src_i].K,
+                                          W, H, dev)
         dep_r = warp_ops.warp_separable(
             deps[src_i] * factor, torch.as_tensor(sf.vpass_y, device=dev),
             torch.as_tensor(sf.hpass_x, device=dev),
@@ -491,6 +508,17 @@ def _rotate(R: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
                         + Rv[:, i, 2] * q[:, 2] for i in range(3)], dim=1)
 
 
+def band_rows(V: int, Hs: int, Ws: int) -> Tuple[int, int]:
+    """(hb, nb): band height and band count of a (V, Hs, Ws) float32 cost
+    field. Fields up to ``BAND_FULL_BYTES`` are one band; larger ones get
+    bands of ``BAND_FIELD_BYTES`` per field (a multiple of 8 rows, at least
+    8, at most Hs)."""
+    if V * Hs * Ws * 4 <= BAND_FULL_BYTES:
+        return Hs, 1
+    hb = min(max(8, int(BAND_FIELD_BYTES // (V * Ws * 4)) // 8 * 8), Hs)
+    return hb, -(-Hs // hb)
+
+
 def rect_cost_vector_stacked(
     stack: RectStack,
     plane: torch.Tensor,             # (H, W, 4) orig-grid ref-cam plane field
@@ -508,7 +536,13 @@ def rect_cost_vector_stacked(
     CENTERS (window samples keep full-resolution texture) and
     nearest-upsamples through the backward warp — the candidate-screening
     approximation (strong_rect.screen_stride). ``geom`` adds the
-    forward-backward reprojection error times ``params.geom_factor``."""
+    forward-backward reprojection error times ``params.geom_factor``.
+
+    The rect-frame cost field is evaluated in the row bands of
+    :func:`band_rows`: the plane transport, the window sums and the geometric
+    term run per band, the last band starting at Hs - hb (its rows overlap
+    its neighbour's with the same values). A band reads its shifted texture
+    rows by clamped row indices, so no padded copy of a texture is made."""
     V, Hp, Wp = stack.src_rect.shape
     H, W = plane.shape[:2]
     dev = plane.device
@@ -539,112 +573,154 @@ def rect_cost_vector_stacked(
     Hs, Ws = -(-Hp // stride), -(-Wp // stride)
     u = (torch.arange(Ws, dtype=torch.float32, device=dev)
          * stride)[None, None, :]
-    v_b = (torch.arange(Hs, dtype=torch.float32, device=dev)
-           * stride)[None, :, None]
     if cache is not None:
         ref_oks, lo_s, hi_s = cache.ref_ok, cache.src_lo, cache.src_hi
+        inv_ws, m_refs, var_refs = cache.inv_w, cache.m_ref, cache.var_ref
     else:
         ref_oks = sub(stack.ref_ok)
         lo_s, hi_s = subr(stack.src_lo), subr(stack.src_hi)
-
-    qw = _warp_groups(fwd_groups, chans, nearest=True)       # (V, 3, Hs, Ws)
-    nq = _rotate(stack.R2r, qw)
-    gx = stack.b * nq[:, 0]
-    gy = stack.b * nq[:, 1]
-    g0 = stack.b * stack.f * nq[:, 2]
-
-    # Depth sign (cheirality) at the window center.
-    denom_q = (nq[:, 0] * (u - stack.cx)
-               + nq[:, 1] * (v_b - stack.cy)) / stack.f + nq[:, 2]
-    z_pos = denom_q < 0
-    xs_c = u + gx * (u - stack.cx) + gy * (v_b - stack.cy) + g0
-    xs_c = torch.where(torch.isfinite(xs_c), xs_c, torch.full_like(xs_c, -1.0))
-    # Center validity via the per-row valid interval of src_ok.
-    valid = (ref_oks > 0.5) & z_pos & (xs_c >= lo_s.clamp(min=0.0)) & \
-        (xs_c < hi_s + 1.0) & (xs_c <= Wp - 1.0)
-
-    z = torch.zeros((V, Hs, Ws), dtype=torch.float32, device=dev)
-    sum_src, sum_src2, sum_rs = z, z.clone(), z.clone()
-    if cache is None:
         inv_2ss = 1.0 / (2.0 * params.sigma_spatial * params.sigma_spatial)
         inv_2sc = 1.0 / (2.0 * params.sigma_color * params.sigma_color)
-        sum_w, sum_ref, sum_ref2 = z.clone(), z.clone(), z.clone()
-        ref_c = sub(stack.ref_rect)
-
-    flat = 0
-    for oy_i, (oy, oxs) in enumerate(_row_offsets(offsets)):
-        # Window rows keep full-res texture; only the center rows are
-        # subsampled (gathered columns span the full frame width).
-        if cache is not None:
-            src_row = cache.src_rows[oy_i]
-        else:
-            src_row = subr(_shift3(stack.src_rect, int(oy), 0)).contiguous()
-            ref_rows = subr(_shift3(stack.ref_rect, int(oy), 0))
-        vs = v_b + oy
-        xs_list, ref_list, w_list = [], [], []
-        for ox in oxs:
-            us = u + ox
-            xs = us + gx * (us - stack.cx) + gy * (vs - stack.cy) + g0
-            xs_list.append(torch.where(torch.isfinite(xs), xs,
-                                       torch.zeros_like(xs)))
-            if cache is None:
-                ref_s = _shift3(ref_rows, 0, int(ox))[..., ::stride]
-                ref_list.append(ref_s)
-                spatial = float(np.sqrt(ox * ox + oy * oy))
-                w_list.append(torch.exp(-spatial * inv_2ss
-                                        - torch.abs(ref_s - ref_c) * inv_2sc))
-        k = len(oxs)
-        xs_cat = torch.stack(xs_list, dim=2)                 # (V, Hs, k, Ws)
-        src_s = rowgather.bilinear_x(
-            src_row.reshape(V * Hs, Wp),
-            xs_cat.reshape(V * Hs, k * Ws).contiguous()).reshape(V, Hs, k, Ws)
-        for j in range(k):
-            s = src_s[:, :, j]
-            if cache is None:
-                w, r = w_list[j], ref_list[j]
-                wr = w * r
-                sum_w += w
-                sum_ref += wr
-                sum_ref2.addcmul_(wr, r)
-            else:
-                w, wr = cache.w[flat + j], cache.wr[flat + j]
-            ws_ = w * s
-            sum_src += ws_
-            sum_src2.addcmul_(ws_, s)
-            sum_rs.addcmul_(wr, s)
-        flat += k
-
-    if cache is None:
-        inv_w = 1.0 / sum_w
-        m_ref = sum_ref * inv_w
-        var_ref = sum_ref2 * inv_w - m_ref * m_ref
-    else:
-        inv_w, m_ref, var_ref = cache.inv_w, cache.m_ref, cache.var_ref
-    m_src = sum_src * inv_w
-    var_src = sum_src2 * inv_w - m_src * m_src
-    covar = sum_rs * inv_w - m_ref * m_src
-    den = torch.sqrt(torch.clamp(var_ref * var_src, min=K_MIN_VAR * K_MIN_VAR))
-    nccv = torch.clamp(1.0 - covar / den, 0.0, COST_MAX)
-    cmax = torch.full_like(nccv, COST_MAX)
-    c = torch.where((var_ref < K_MIN_VAR) | (var_src < K_MIN_VAR), cmax, nccv)
-    c = torch.where(valid, c, cmax)
-
+        ref_cs = sub(stack.ref_rect)
     if geom:
-        if cache is not None and cache.src_depth is not None:
-            dep = cache.src_depth
+        deps = (cache.src_depth if cache is not None
+                and cache.src_depth is not None else subr(stack.src_depth))
+    rows = _row_offsets(offsets)
+    hb, nb = band_rows(V, Hs, Ws)
+    # Offsets per bilinear_x launch, so that its (V, hb, k, Ws) queries and
+    # samples stay within GATHER_BYTES each.
+    k_cap = max(1, int(GATHER_BYTES // (V * hb * Ws * 4)))
+
+    def band(r0):
+        """Rows [r0, r0 + hb) of the (V, Hs, Ws) rect-frame cost field."""
+        def rs(a):                                   # the band's rows of a
+            return a[:, r0:r0 + hb]
+
+        def texture_rows(img, oy):
+            """Rows stride * (r0 + i) + oy of a (V, Hp, Wp) texture, edge-
+            clamped (= subr(shift(img, oy, 0)) at the band's rows)."""
+            r = (torch.arange(hb, device=dev) + r0) * stride + int(oy)
+            return img.index_select(1, r.clamp(0, Hp - 1))
+
+        fwd_b = tuple(g._replace(vy=g.vy[:, r0:r0 + hb],
+                                 hx=g.hx[:, r0:r0 + hb]) for g in fwd_groups)
+        qw = _warp_groups(fwd_b, chans, nearest=True)        # (V, 3, hb, Ws)
+        nq = _rotate(stack.R2r, qw)
+        gx = stack.b * nq[:, 0]
+        gy = stack.b * nq[:, 1]
+        g0 = stack.b * stack.f * nq[:, 2]
+        v_b = ((torch.arange(hb, dtype=torch.float32, device=dev) + r0)
+               * stride)[None, :, None]
+
+        # Depth sign (cheirality) at the window center.
+        denom_q = (nq[:, 0] * (u - stack.cx)
+                   + nq[:, 1] * (v_b - stack.cy)) / stack.f + nq[:, 2]
+        z_pos = denom_q < 0
+        xs_c = u + gx * (u - stack.cx) + gy * (v_b - stack.cy) + g0
+        xs_c = torch.where(torch.isfinite(xs_c), xs_c,
+                           torch.full_like(xs_c, -1.0))
+        # Center validity via the per-row valid interval of src_ok.
+        valid = (rs(ref_oks) > 0.5) & z_pos & \
+            (xs_c >= rs(lo_s).clamp(min=0.0)) & \
+            (xs_c < rs(hi_s) + 1.0) & (xs_c <= Wp - 1.0)
+
+        z = torch.zeros((V, hb, Ws), dtype=torch.float32, device=dev)
+        sum_src, sum_src2, sum_rs = z, z.clone(), z.clone()
+        if cache is None:
+            sum_w, sum_ref, sum_ref2 = z.clone(), z.clone(), z.clone()
+            ref_c = rs(ref_cs)
+
+        flat = 0
+        for oy_i, (oy, oxs) in enumerate(rows):
+            # Window rows keep full-res texture; only the center rows are
+            # subsampled (gathered columns span the full frame width).
+            if cache is not None:
+                src_row = rs(cache.src_rows[oy_i]).contiguous()
+            else:
+                src_row = texture_rows(stack.src_rect, oy)
+                ref_rows = texture_rows(stack.ref_rect, oy)
+            vs = v_b + oy
+            for c0 in range(0, len(oxs), k_cap):
+                ox_c = oxs[c0:c0 + k_cap]
+                xs_list, ref_list, w_list = [], [], []
+                for ox in ox_c:
+                    us = u + ox
+                    xs = us + gx * (us - stack.cx) + gy * (vs - stack.cy) + g0
+                    xs_list.append(torch.where(torch.isfinite(xs), xs,
+                                               torch.zeros_like(xs)))
+                    if cache is None:
+                        ref_s = _shift3(ref_rows, 0, int(ox))[..., ::stride]
+                        ref_list.append(ref_s)
+                        spatial = float(np.sqrt(ox * ox + oy * oy))
+                        w_list.append(torch.exp(
+                            -spatial * inv_2ss
+                            - torch.abs(ref_s - ref_c) * inv_2sc))
+                k = len(ox_c)
+                # Each chunk's transients are freed before the next's.
+                xs_cat = torch.stack(xs_list, dim=2)         # (V, hb, k, Ws)
+                del xs_list
+                src_s = rowgather.bilinear_x(
+                    src_row.reshape(V * hb, Wp),
+                    xs_cat.reshape(V * hb, k * Ws)).reshape(V, hb, k, Ws)
+                del xs_cat
+                for j in range(k):
+                    s = src_s[:, :, j]
+                    if cache is None:
+                        w, r = w_list[j], ref_list[j]
+                        wr = w * r
+                        sum_w += w
+                        sum_ref += wr
+                        sum_ref2.addcmul_(wr, r)
+                    else:
+                        w = rs(cache.w[flat + j])
+                        wr = rs(cache.wr[flat + j])
+                    ws_ = w * s
+                    sum_src += ws_
+                    sum_src2.addcmul_(ws_, s)
+                    sum_rs.addcmul_(wr, s)
+                flat += k
+                del src_s, ref_list, w_list
+
+        if cache is None:
+            inv_w = 1.0 / sum_w
+            m_ref = sum_ref * inv_w
+            var_ref = sum_ref2 * inv_w - m_ref * m_ref
         else:
-            dep = subr(stack.src_depth).contiguous()
-        z_src = rowgather.row_gather(
-            dep.reshape(V * Hs, Wp),
-            xs_c.clamp(0.0, Wp - 1).to(torch.int32).reshape(V * Hs, Ws)
-            .contiguous()).reshape(V, Hs, Ws)
-        ok_g = (xs_c >= 0.0) & (xs_c <= Wp - 1.0)
-        x_back = xs_c + stack.f * stack.b / torch.where(
-            z_src > 0, z_src, torch.full_like(z_src, 1e30))
-        err = torch.clamp(torch.abs(x_back - u), max=GEOM_COST_MAX)
-        g = torch.where(ok_g & (z_src > 0), err,
-                        torch.full_like(err, GEOM_COST_MAX))
-        c = c + params.geom_factor * g
+            inv_w, m_ref, var_ref = rs(inv_ws), rs(m_refs), rs(var_refs)
+        m_src = sum_src * inv_w
+        var_src = sum_src2 * inv_w - m_src * m_src
+        covar = sum_rs * inv_w - m_ref * m_src
+        den = torch.sqrt(torch.clamp(var_ref * var_src,
+                                     min=K_MIN_VAR * K_MIN_VAR))
+        nccv = torch.clamp(1.0 - covar / den, 0.0, COST_MAX)
+        cmax = torch.full_like(nccv, COST_MAX)
+        c = torch.where((var_ref < K_MIN_VAR) | (var_src < K_MIN_VAR), cmax,
+                        nccv)
+        c = torch.where(valid, c, cmax)
+
+        if geom:
+            z_src = rowgather.row_gather(
+                rs(deps).contiguous().reshape(V * hb, Wp),
+                xs_c.clamp(0.0, Wp - 1).to(torch.int32).reshape(V * hb, Ws)
+            ).reshape(V, hb, Ws)
+            ok_g = (xs_c >= 0.0) & (xs_c <= Wp - 1.0)
+            x_back = xs_c + stack.f * stack.b / torch.where(
+                z_src > 0, z_src, torch.full_like(z_src, 1e30))
+            err = torch.clamp(torch.abs(x_back - u), max=GEOM_COST_MAX)
+            g = torch.where(ok_g & (z_src > 0), err,
+                            torch.full_like(err, GEOM_COST_MAX))
+            c = c + params.geom_factor * g
+        return c
+
+    if nb == 1:
+        c = band(0)
+    else:
+        BRANCHES["banded cost evaluations"] += 1
+        BRANCHES["cost bands"] += nb
+        c = torch.empty((V, Hs, Ws), dtype=torch.float32, device=dev)
+        for b in range(nb):
+            r0 = min(b * hb, Hs - hb)
+            c[:, r0:r0 + hb] = band(r0)
 
     back = _warp_groups(stack.bwd, c[:, None], nearest=True,
                         stride=stride)[:, 0]                 # (V, H, W)
@@ -717,9 +793,9 @@ def _sweep_ncc_volume(rv: RectView, coeff_fn, S: int, offsets: np.ndarray,
     var_ref = sum_ref2 * inv_w - m_ref * m_ref
 
     # Probe chunks bounded so the (Hs, sc, k, Ws) gather-index transient
-    # stays near 256 MB; balanced chunk size.
+    # stays near GATHER_BYTES; balanced chunk size.
     k_max = max(len(oxs) for _, oxs in rows)
-    sc_cap = max(1, min(S_CHUNK, int(256e6 // (k_max * Hs * Ws * 4))))
+    sc_cap = max(1, min(S_CHUNK, int(GATHER_BYTES // (k_max * Hs * Ws * 4))))
     n_chunks = -(-S // sc_cap)
     sc = -(-S // n_chunks)
     ref_ok_s = sub(rv.ref_ok)[:, None] > 0.5

@@ -17,6 +17,7 @@ import torch
 from ..config import COST_MAX, PatchMatchParams, PixelState, RunState
 from ..geometry import cameras as geo
 from ..ops import sampling, support
+from ..utils.profiling import BRANCHES
 from . import patchmatch as pm
 from . import rectcost, sweep
 from .state import PMState, SweepData
@@ -271,10 +272,13 @@ def propagate_strong_rect(key, data: SweepData, sup, state: PMState,
     else:
         flags, cand_planes = classic_candidate_planes(state.cost, state.plane)
 
-    # Above 4 MP the screening volumes are stored bf16 (they only feed the
-    # candidate argmin and view-selection counts; the winner is re-scored
-    # exactly below).
-    cdt = torch.bfloat16 if H * W > 4_000_000 else torch.float32
+    # Above pm.FULLRES_PX the screening volumes are stored bf16 (they only
+    # feed the candidate argmin and view-selection counts; the winner is
+    # re-scored exactly below).
+    cdt = torch.float32
+    if H * W > pm.FULLRES_PX:
+        cdt = torch.bfloat16
+        BRANCHES["bf16 screening"] += 1
     cost_array = torch.stack([cost_fn_s(p).to(cdt) for p in cand_planes])
     cost_array = torch.where(flags[:, None], cost_array,
                              torch.zeros((), dtype=cdt, device=dev))

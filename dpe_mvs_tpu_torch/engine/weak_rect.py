@@ -45,6 +45,7 @@ from ..geometry import cameras as geo
 from ..geometry import rectify
 from ..ops import checker, ncc, sampling
 from ..ops import gather2d as g2d
+from ..utils.profiling import BRANCHES
 from . import patchmatch as pm
 from . import rectcost
 from . import strong_rect, sweep
@@ -332,6 +333,10 @@ def build_weak_bundle(data: SweepData, sup, state: PMState,
         aps.append(prof)
         a_d0s.append(a_d0)
     store_a_d0 = store_ap and H * W <= A_D0_STORE_MAX_PX
+    if not store_ap:
+        BRANCHES["streamed anchor profiles"] += 1
+    if not store_a_d0:
+        BRANCHES["regathered a_d0"] += 1
 
     return WeakRectBundle(
         vol_center=torch.stack(vols_c),
@@ -594,6 +599,7 @@ def propagate_weak_rect(key, data: SweepData, sup, state: PMState,
     else:
         hb = -(-H // nb)
         nb = -(-H // hb)
+        BRANCHES["weak bands"] += nb
         outs = []
         for b in range(nb):
             r0 = min(b * hb, H - hb)

@@ -1,8 +1,12 @@
 """Pairwise epipolar rectification: the geometry that makes NCC row-local.
 
-The port's own copy of :mod:`dpe_mvs_tpu.geometry.rectify` (host-side numpy,
-same arithmetic, so the rect frames and warp fields are bit-identical to the
-JAX package's). For each (reference, source) pair both cameras are rotated
+The port's own copy of :mod:`dpe_mvs_tpu.geometry.rectify` (the same
+float64 arithmetic, so the rect frames and warp fields are bit-identical to
+the JAX package's). The frames are solved in numpy; the per-pixel warp
+fields and depth factors are evaluated element by element with torch, on
+the CPU or on the sweep's device (in numpy they dominated a large frame's
+host time), each operation the numpy expression's, so every element rounds
+as numpy's does. For each (reference, source) pair both cameras are rotated
 about their centers onto a shared orientation whose x-axis is the baseline,
 with shared intrinsics K. In the rectified frames:
 
@@ -26,6 +30,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
+import torch
 
 LANES = 128
 
@@ -144,18 +149,24 @@ def build_rect_pair(
 # Separable (Catmull-Smith) two-pass warp index fields
 # ---------------------------------------------------------------------------
 
-def _inverse_map(H: np.ndarray, out_w: int, out_h: int):
+def _grid(n: int, device, row: bool):
+    """0..n-1 as float64, shaped (1, n) (``row``) or (n, 1)."""
+    a = torch.arange(n, dtype=torch.float64, device=device)
+    return a[None, :] if row else a[:, None]
+
+
+def _inverse_map(H: np.ndarray, out_w: int, out_h: int, device):
     """Backward map of the projective warp ``out[q] = in[H^{-1} q]``:
     per rect pixel (u, v) the original coords (x, y). Returns (x, y) fields
-    of shape (out_h, out_w) plus the positive-denominator mask."""
-    Minv = np.linalg.inv(H)
-    u, v = np.meshgrid(np.arange(out_w, dtype=np.float64),
-                       np.arange(out_h, dtype=np.float64))
-    w = Minv[2, 0] * u + Minv[2, 1] * v + Minv[2, 2]
-    sign_ok = w * np.sign(Minv[2, 2] if Minv[2, 2] != 0 else 1.0) > 1e-9
-    w = np.where(np.abs(w) < 1e-12, 1e-12, w)
-    x = (Minv[0, 0] * u + Minv[0, 1] * v + Minv[0, 2]) / w
-    y = (Minv[1, 0] * u + Minv[1, 1] * v + Minv[1, 2]) / w
+    of shape (out_h, out_w) plus the positive-denominator mask (float64
+    tensors on ``device``)."""
+    m = np.linalg.inv(H).tolist()
+    u, v = _grid(out_w, device, True), _grid(out_h, device, False)
+    w = m[2][0] * u + m[2][1] * v + m[2][2]
+    sign_ok = w * float(np.sign(m[2][2] if m[2][2] != 0 else 1.0)) > 1e-9
+    w = torch.where(w.abs() < 1e-12, 1e-12, w)
+    x = (m[0][0] * u + m[0][1] * v + m[0][2]) / w
+    y = (m[1][0] * u + m[1][1] * v + m[1][2]) / w
     return x, y, sign_ok
 
 
@@ -188,54 +199,55 @@ _SWAP = np.array([[0.0, 1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]])
 
 
 def build_warp_fields(H: np.ndarray, in_w: int, in_h: int,
-                      out_w: int, out_h: int) -> WarpFields:
-    """Precompute the two-pass index fields for ``out[q] = in[H^{-1} q]``."""
+                      out_w: int, out_h: int, device=None) -> WarpFields:
+    """Precompute the two-pass index fields for ``out[q] = in[H^{-1} q]``,
+    evaluated on ``device`` (the CPU by default) and returned as numpy
+    arrays."""
     H = np.asarray(H, np.float64)
     transposed = _needs_transpose(H)
     if transposed:
         H = H @ _SWAP  # input will be given transposed: in'[y, x] = in[x, y]
         in_w, in_h = in_h, in_w
+    device = torch.device("cpu" if device is None else device)
 
-    x, y, sign_ok = _inverse_map(H, out_w, out_h)
+    x, y, sign_ok = _inverse_map(H, out_w, out_h, device)
     valid = sign_ok & (x >= 0) & (x <= in_w - 1) & (y >= 0) & (y <= in_h - 1)
+    del y, sign_ok
 
     # Vertical-pass rows: solve u from x(u, v) = xc, then y(u, v).
-    Minv = np.linalg.inv(H)
-    v = np.arange(out_h, dtype=np.float64)[:, None]
-    xc = np.arange(in_w, dtype=np.float64)[None, :]
+    m = np.linalg.inv(H).tolist()
+    v = _grid(out_h, device, False)
+    xc = _grid(in_w, device, True)
     # x = (m00 u + m01 v + m02) / (m20 u + m21 v + m22)
     #  => u = ((m21 v + m22) xc - (m01 v + m02)) / (m00 - m20 xc)
-    denom = Minv[0, 0] - Minv[2, 0] * xc
-    denom = np.where(np.abs(denom) < 1e-9, np.sign(denom + 1e-30) * 1e-9,
-                     denom)
-    u_of = ((Minv[2, 1] * v + Minv[2, 2]) * xc
-            - (Minv[0, 1] * v + Minv[0, 2])) / denom
-    w2 = Minv[2, 0] * u_of + Minv[2, 1] * v + Minv[2, 2]
-    w2 = np.where(np.abs(w2) < 1e-12, 1e-12, w2)
-    vpass_y = (Minv[1, 0] * u_of + Minv[1, 1] * v + Minv[1, 2]) / w2
+    denom = m[0][0] - m[2][0] * xc
+    denom = torch.where(denom.abs() < 1e-9, torch.sign(denom + 1e-30) * 1e-9,
+                        denom)
+    u_of = ((m[2][1] * v + m[2][2]) * xc - (m[0][1] * v + m[0][2])) / denom
+    w2 = m[2][0] * u_of + m[2][1] * v + m[2][2]
+    w2 = torch.where(w2.abs() < 1e-12, 1e-12, w2)
+    vpass_y = (m[1][0] * u_of + m[1][1] * v + m[1][2]) / w2
 
     return WarpFields(
-        vpass_y=np.clip(vpass_y, 0.0, in_h - 1).astype(np.float32),
-        hpass_x=np.clip(x, 0.0, in_w - 1).astype(np.float32),
-        valid=valid,
+        vpass_y=vpass_y.clamp(0.0, in_h - 1).to(torch.float32).cpu().numpy(),
+        hpass_x=x.clamp(0.0, in_w - 1).to(torch.float32).cpu().numpy(),
+        valid=valid.cpu().numpy(),
         transposed_input=transposed,
     )
 
 
 def src_depth_factor(pair: RectPair, src_K: np.ndarray, width: int,
-                     height: int) -> np.ndarray:
+                     height: int, device=None) -> torch.Tensor:
     """(H, W) float32 factor taking a source depth map (z along the source
     camera's axis, on the source pixel grid) to z along the rect axis:
-    z_rect = (R2s row 3) . X_src = depth * (r3 . p~_src)."""
-    xg, yg = np.meshgrid(np.arange(width, dtype=np.float64),
-                         np.arange(height, dtype=np.float64))
-    Ks = np.asarray(src_K, np.float64)
-    p_s = np.stack([(xg - Ks[0, 2]) / Ks[0, 0],
-                    (yg - Ks[1, 2]) / Ks[1, 1],
-                    np.ones_like(xg)])
-    r3 = pair.R2s[2]
-    return (r3[0] * p_s[0] + r3[1] * p_s[1] + r3[2] * p_s[2]) \
-        .astype(np.float32)
+    z_rect = (R2s row 3) . X_src = depth * (r3 . p~_src), evaluated on
+    ``device`` (the CPU by default)."""
+    device = torch.device("cpu" if device is None else device)
+    Ks = np.asarray(src_K, np.float64).tolist()
+    r3 = np.asarray(pair.R2s[2], np.float64).tolist()
+    px = (_grid(width, device, True) - Ks[0][2]) / Ks[0][0]
+    py = (_grid(height, device, False) - Ks[1][2]) / Ks[1][1]
+    return (r3[0] * px + r3[1] * py + r3[2] * 1.0).to(torch.float32)
 
 
 def disparity_coeffs(nr, d, f, b):

@@ -90,7 +90,7 @@ def build_tile_data(inputs: ProblemInputs, n_tiles: int, tile: int,
     frame = (max(f.wp for f in frames), max(f.hp for f in frames))
     ti = tiles[tile]
     rh = rectcost.build_rect_host(ti.cameras, ti.width, ti.height, v_pad,
-                                  force_size=frame)
+                                  force_size=frame, device=device)
     data = st_mod.build_sweep_data(ti, v_pad, device=device).replace(
         rect=rectcost.build_rect_views(rh, ti.images, device))
     return data, rh.statics, hb

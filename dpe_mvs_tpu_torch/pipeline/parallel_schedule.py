@@ -141,7 +141,7 @@ class ParallelRunner:
             data = st_mod.build_sweep_data(inputs, self.v_pad, *maps,
                                            device=dev)
             if rect:
-                rh = seq._rect_host(p, inputs, self.v_pad, frame)
+                rh = seq._rect_host(p, inputs, self.v_pad, frame, dev)
                 data = data.replace(rect=rectcost.build_rect_views(
                     rh, inputs.images, dev))
                 rects.append((rh, inputs.cameras))

@@ -79,14 +79,16 @@ def scale_index(scale_size: int) -> int:
     return s
 
 
-def _rect_host(problem, inputs, v_pad: int, rect_frame=None):
+def _rect_host(problem, inputs, v_pad: int, rect_frame=None, device=None):
+    """The problem's rect host of this round (built once; its warp fields
+    evaluated on ``device``)."""
     key = (str(problem.dense_folder), problem.ref_image_id, inputs.width,
            inputs.height, v_pad, rect_frame)
     rh = _RECT_HOSTS.get(key)
     if rh is None:
         rh = _RECT_HOSTS[key] = rectcost.build_rect_host(
             inputs.cameras, inputs.width, inputs.height, v_pad,
-            force_size=rect_frame)
+            force_size=rect_frame, device=device)
     return rh
 
 
@@ -223,7 +225,7 @@ def process_problem(problem, params: PatchMatchParams, scale_size: int,
     rstat = None
     if use_rect_engine(cfg):
         with span("rectify"):
-            rh = _rect_host(problem, inputs, v_pad, rect_frame)
+            rh = _rect_host(problem, inputs, v_pad, rect_frame, device)
             views = rectcost.build_rect_views(rh, inputs.images, device)
         if params.geom_consistency and inputs.src_depths is not None:
             with span("src-depth rectify"):

@@ -8,6 +8,12 @@ time from the stream reaching the span's start to its reaching the span's
 end, so that it counts the device's work of the span (and the host's, where
 the device waited for it) without ever blocking the host. Events are read
 once they have completed, and all of them when ``totals`` is read.
+
+:data:`BRANCHES` counts the full-resolution branches as the engine takes
+them (host-side counts, no device work): the rect cost field's row bands,
+the weak machinery's streamed anchor profiles, regathered probe-center
+disparities and row bands, bf16 screening volumes and scanned view-selection
+draws.
 """
 from __future__ import annotations
 
@@ -77,3 +83,7 @@ class StageTimer:
 
 
 GLOBAL_TIMER = StageTimer()
+
+# Full-resolution branches taken so far, by name (see the module docstring);
+# reset with ``BRANCHES.clear()``.
+BRANCHES: collections.Counter = collections.Counter()

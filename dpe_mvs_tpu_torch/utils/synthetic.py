@@ -1,6 +1,7 @@
 """Synthetic MVS scenes with known ground truth.
 
-Port of :func:`dpe_mvs_tpu.utils.synthetic.make_plane_scene` without OpenCV,
+Port of :func:`dpe_mvs_tpu.utils.synthetic.make_plane_scene` and
+:func:`~dpe_mvs_tpu.utils.synthetic.make_rich_scene` without OpenCV,
 rendered in memory: the same cameras, depth ranges and ground-truth depths
 and normals for the same arguments and seed, and a texture of the same kind
 (three octaves of seeded noise, bicubic-upsampled) sampled bilinearly. The
@@ -76,6 +77,24 @@ def _look_at(eye: np.ndarray, target: np.ndarray, up=np.array([0, -1.0, 0])):
     return R.astype(np.float32), t.astype(np.float32)
 
 
+def _ring_camera(K: np.ndarray, width: int, height: int, v: int,
+                 num_views: int, radius: float, depth0: float):
+    """View v of the ring of cameras looking at (0, 0, depth0): view 0 at
+    the origin, the others on a circle of ``radius`` in the z = 0 plane.
+    Returns (eye, R, t, world-frame ray directions (H, W, 3))."""
+    ang = 2 * np.pi * v / max(num_views, 1)
+    eye = np.array([radius * np.cos(ang), radius * np.sin(ang), 0.0],
+                   np.float32)
+    if v == 0:
+        eye = np.zeros(3, np.float32)
+    R, t = _look_at(eye, np.array([0, 0, depth0], np.float32))
+    ys, xs = np.mgrid[0:height, 0:width].astype(np.float32)
+    rays = np.stack([(xs - K[0, 2]) / K[0, 0],
+                     (ys - K[1, 2]) / K[1, 1],
+                     np.ones_like(xs)], axis=-1)
+    return eye, R, t, rays @ R  # R^T applied row-wise
+
+
 @dataclasses.dataclass
 class PlaneScene:
     images: List[np.ndarray]           # per-view (H, W) float32 in [0, 255]
@@ -127,19 +146,8 @@ def make_plane_scene(*, width: int = 160, height: int = 120,
     images, cameras, gt_depths, gt_normals = [], [], [], []
     weak_region_v0 = None
     for v in range(num_views):
-        ang = 2 * np.pi * v / max(num_views, 1)
-        eye = np.array([radius * np.cos(ang), radius * np.sin(ang), 0.0],
-                       np.float32)
-        if v == 0:
-            eye = np.zeros(3, np.float32)
-        R, t = _look_at(eye, np.array([0, 0, depth0], np.float32))
-
-        ys, xs = np.mgrid[0:height, 0:width].astype(np.float32)
-        rays = np.stack([(xs - K[0, 2]) / K[0, 0],
-                         (ys - K[1, 2]) / K[1, 1],
-                         np.ones_like(xs)], axis=-1)
-        rays_w = rays @ R  # R^T applied row-wise
-        eye_w = eye
+        eye_w, R, t, rays_w = _ring_camera(K, width, height, v, num_views,
+                                           radius, depth0)
 
         def hit(n, c):
             denom = rays_w @ n
@@ -179,6 +187,99 @@ def make_plane_scene(*, width: int = 160, height: int = 120,
     return PlaneScene(images=images, cameras=cameras, gt_depths=gt_depths,
                       gt_normals=gt_normals, width=width, height=height,
                       weak_region=weak_region_v0)
+
+
+def make_rich_scene(*, width: int = 640, height: int = 480,
+                    num_views: int = 10, depth0: float = 4.0,
+                    weak_fraction: float = 0.25, seed: int = 0) -> PlaneScene:
+    """A harder ground-truth scene: two oblique planes, a sphere cap (curved
+    surface), a foreground occluder slab, and large view-consistent
+    weak-texture regions (blanked in texture space, so every view sees the
+    same textureless world area). Ray-cast per view: nearest positive hit
+    over all surfaces, so occlusions fall out naturally."""
+    rng = np.random.default_rng(seed)
+    f = 0.9 * width
+    K = np.array([[f, 0, width / 2.0], [0, f, height / 2.0], [0, 0, 1]],
+                 np.float32)
+    tex = procedural_texture(rng)
+    # View-consistent weak regions: blank rectangles of the texture itself.
+    for _ in range(max(1, int(weak_fraction * 8))):
+        ty = rng.integers(0, tex.shape[0] - tex.shape[0] // 3)
+        tx = rng.integers(0, tex.shape[1] - tex.shape[1] // 3)
+        th = rng.integers(tex.shape[0] // 6, tex.shape[0] // 3)
+        tw = rng.integers(tex.shape[1] // 6, tex.shape[1] // 3)
+        tex[ty:ty + th, tx:tx + tw] = float(tex.mean())
+    tex_scale = 80.0
+
+    # Surfaces: the base plane tilted about x; a side plane strongly oblique
+    # about y covering x > 0.45; a sphere cap bulging toward the cameras; an
+    # occluder slab floating nearer, over a small (x, y) window.
+    tilt = 0.18
+    n1 = np.array([0.0, np.sin(tilt), -np.cos(tilt)], np.float32)
+    n1 /= np.linalg.norm(n1)
+    c1 = float(n1 @ np.array([0, 0, depth0]))
+    obl = 0.5
+    n2 = np.array([np.sin(obl), 0.0, -np.cos(obl)], np.float32)
+    n2 /= np.linalg.norm(n2)
+    c2 = float(n2 @ np.array([0.45, 0, depth0 * 0.97]))
+    sph_c = np.array([-0.45, -0.25, depth0 * 0.92], np.float32)
+    sph_r = 0.5
+    n4 = np.array([0.0, 0.0, -1.0], np.float32)
+    c4 = float(n4 @ np.array([0, 0, depth0 * 0.55]))
+    BIG = 1e30
+
+    images, cameras, gt_depths, gt_normals = [], [], [], []
+    for v in range(num_views):
+        eye, R, t, d = _ring_camera(K, width, height, v, num_views, 0.3,
+                                    depth0)
+
+        def plane_hit(n, c, limit=None):
+            denom = d @ n
+            s = (c - eye @ n) / np.where(np.abs(denom) > 1e-9, denom, 1e-9)
+            ok = s > 0.1
+            if limit is not None:
+                ok &= limit(eye + d * s[..., None])
+            return np.where(ok, s, BIG), np.broadcast_to(n, d.shape)
+
+        s1, nn1 = plane_hit(n1, c1)
+        s2, nn2 = plane_hit(n2, c2, limit=lambda X: X[..., 0] > 0.45)
+        # Sphere: |eye + s d - C|^2 = r^2, the smaller positive root.
+        oc = eye - sph_c
+        b = 2.0 * (d * oc).sum(-1)
+        a = (d * d).sum(-1)
+        cq = float(oc @ oc) - sph_r * sph_r
+        disc = b * b - 4 * a * cq
+        sq = np.sqrt(np.maximum(disc, 0.0))
+        s3 = (-b - sq) / (2 * a)
+        s3 = np.where((disc > 0) & (s3 > 0.1), s3, BIG)
+        nn3 = (eye + d * s3[..., None] - sph_c) / sph_r
+        flip = (nn3 * d).sum(-1) > 0
+        nn3 = np.where(flip[..., None], -nn3, nn3)
+        s4, nn4 = plane_hit(
+            n4, c4, limit=lambda X: (np.abs(X[..., 0] - 0.1) < 0.22)
+            & (np.abs(X[..., 1] - 0.3) < 0.15))
+
+        ss = np.stack([s1, s2, s3, s4])
+        pick = np.argmin(ss, axis=0)
+        s = np.take_along_axis(ss, pick[None], axis=0)[0]
+        normal = np.take_along_axis(np.stack([nn1, nn2, nn3, nn4]),
+                                    pick[None, ..., None], axis=0)[0]
+        Xw = eye + d * s[..., None]
+        depth = (Xw - eye) @ R[2]
+
+        u = np.mod(Xw[..., 0] * tex_scale, tex.shape[1] - 1)
+        w_ = np.mod(Xw[..., 1] * tex_scale, tex.shape[0] - 1)
+        img = _bilinear(tex, u.astype(np.float32), w_.astype(np.float32))
+        images.append(np.clip(img, 0, 255).astype(np.uint8)
+                      .astype(np.float32))
+        dmin = float(depth.min() * 0.9)
+        dmax = float(depth.max() * 1.1)
+        cameras.append(CameraData(K=K.copy(), R=R, t=t, depth_min=dmin,
+                                  depth_max=dmax, width=width, height=height))
+        gt_depths.append(depth.astype(np.float32))
+        gt_normals.append(normal.astype(np.float32))
+    return PlaneScene(images=images, cameras=cameras, gt_depths=gt_depths,
+                      gt_normals=gt_normals, width=width, height=height)
 
 
 def write_scene_folder(scene: PlaneScene, folder) -> Path:

@@ -13,10 +13,22 @@ scored on (ETH3D / Tanks-and-Temples):
     F = 2PR / (P + R), tau by default 0.005 x the median ground-truth depth.
 
 ``chip_smoke.py`` and ``tests/test_torch_pipeline.py`` score the pipeline's
-cloud with it.
+cloud with it. As a script it renders a scene
+(``utils.synthetic.make_rich_scene``, or the plane scene, with a depth step
+and a blank patch for ``step``), writes it as a dense folder, runs
+``dpe_mvs`` with fusion on it and prints the report (``--json``: one line):
+
+    python tools/torch_eval.py [--scene rich|plane|step] [--width 640]
+        [--height 480] [--views 10] [--seed 11] [--tau T] [--parallel]
+        [--engine rect|exact] [--folder DIR] [--cpu] [--json]
 """
 from __future__ import annotations
 
+import argparse
+import json
+import sys
+import tempfile
+import time
 from pathlib import Path
 
 import numpy as np
@@ -98,3 +110,54 @@ def evaluate_scene(sc, folder, *, tau: float | None = None,
         tau = tau if tau is not None else 0.005 * depth_scale(sc)
         report["cloud"] = fscore(cloud, backproject_gt(sc, gt_stride), tau)
     return report
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--scene", default="rich",
+                    choices=["rich", "plane", "step"])
+    ap.add_argument("--width", type=int, default=640)
+    ap.add_argument("--height", type=int, default=480)
+    ap.add_argument("--views", type=int, default=10)
+    ap.add_argument("--tau", type=float, default=None)
+    ap.add_argument("--seed", type=int, default=11)
+    ap.add_argument("--parallel", action="store_true")
+    ap.add_argument("--engine", default="rect", choices=["rect", "exact"])
+    ap.add_argument("--json", action="store_true",
+                    help="print the report as one JSON line")
+    ap.add_argument("--folder", default=None,
+                    help="write (and keep) the dense folder here")
+    ap.add_argument("--cpu", action="store_true", help="run on the CPU")
+    args = ap.parse_args(argv)
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from dpe_mvs_tpu_torch.api import dpe_mvs
+    from dpe_mvs_tpu_torch.config import EngineConfig
+    from dpe_mvs_tpu_torch.utils import synthetic
+
+    if args.scene == "rich":
+        sc = synthetic.make_rich_scene(width=args.width, height=args.height,
+                                       num_views=args.views, seed=args.seed)
+    else:
+        step = args.scene == "step"
+        sc = synthetic.make_plane_scene(
+            width=args.width, height=args.height, num_views=args.views,
+            step=step, weak_patch=step, seed=args.seed)
+    folder = synthetic.write_scene_folder(
+        sc, args.folder or tempfile.mkdtemp(prefix="dpe_eval_"))
+    cfg = EngineConfig(use_rect=args.engine == "rect")
+    t0 = time.time()
+    dpe_mvs(str(folder), verbose=not args.json, fusion=True, depth=True,
+            normal=True, weak=True, cfg=cfg, parallel=args.parallel,
+            device="cpu" if args.cpu else None)
+    report = evaluate_scene(sc, folder, tau=args.tau)
+    report["pipeline_seconds"] = round(time.time() - t0, 2)
+    report["scene"] = {"kind": args.scene, "width": args.width,
+                       "height": args.height, "views": args.views,
+                       "engine": args.engine}
+    print(json.dumps(report) if args.json else json.dumps(report, indent=2))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
