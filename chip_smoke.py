@@ -10,7 +10,7 @@ REFINE_ITER, weak machinery, edges and geometric consistency) for all 6,
 reading each problem's priors and its sources' depths back from the pass-A
 writeback; then written to a dense folder and run through the whole
 pipeline by the CLI, as a user runs it; then frames of 1600x1200 and
-3200x2400 (phase 12). Phases:
+6048x4032 (phase 12). Phases:
 
   1. the card's name and power limit (nvidia-smi);
   2. build the kernels from ``dpe_mvs_tpu_torch/csrc`` (one nvcc per source,
@@ -60,13 +60,14 @@ pipeline by the CLI, as a user runs it; then frames of 1600x1200 and
      (old_gather_map, old_free_at). Then launches per sweep, and the warm
      time of one more pass-B sweep with a synchronised per-stage breakdown
      and the peak device memory;
-  9. the pipeline: the scene written to a dense folder
+  9. the pipeline: the first PIPELINE_VIEWS (3) views of the scene (a cut
+     of depth that pays for phase 12c) written to a dense folder
      (``utils.synthetic.write_scene_folder``, PNG bytes) and run in-process
      by ``dpe_mvs_tpu_torch.cli.main([folder, "0", "1", "0", "1", "1", "1",
      "1", "1"])`` (card 0, verbose, no viz, fusion, all four exports): the
-     schedule's 2 rounds (400x300, then 800x600), 8 iterations of 6 sweeps,
+     schedule's 2 rounds (400x300, then 800x600), 8 iterations of 3 sweeps,
      with the dual-level edge and label maps of ``edges/dual_level``, then
-     fusion of the 6 depth maps into ``DPE/DPE.ply`` on the card. Counters
+     fusion of the 3 depth maps into ``DPE/DPE.ply`` on the card. Counters
      set to 0 just before and read just after; all five kernel entries must
      have launched; fusion must have launched ``gather2d_hwc`` 3 times per
      (reference, source) pair and nothing else; problem 0's ``depth.npy``
@@ -98,7 +99,7 @@ pipeline by the CLI, as a user runs it; then frames of 1600x1200 and
         fails the phase with its call site); problem 0 meets the bar of
         phase 6;
      b. the modal pass B on that writeback (the stand-in support maps of
-        phase 7), for problems 0 and 1, then for the rest if the script is
+        phase 7), for problem 0, then for the rest if the script is
         projected to end within EXACT_BUDGET_S (it prints which ran):
         gather2d_hwc and gather2d_pick must have launched; problem 0 no
         worse than its 10a error + 0.003, valid > 50%;
@@ -121,9 +122,10 @@ pipeline by the CLI, as a user runs it; then frames of 1600x1200 and
      NCCL refuses two ranks on one device, so every collective has one
      rank):
      a. ``run_pipeline_parallel`` with fusion on a dense folder of the first
-        PARALLEL_VIEWS (3) views of phase 9's scene (2 rounds of 4 passes
-        over 3 problems, the state on the card for a round, the exchange
-        between passes; a cut of depth that pays for phase 12), counters set to
+        PARALLEL_VIEWS (3) views of the scene, phase 9's (2 rounds of 4
+        passes over 3 problems, the state on the card for a round, the
+        exchange between passes; a cut of depth that pays for phase 12),
+        counters set to
         0 just before and read just after, inside :class:`Capture`: all five
         kernel entries must have launched; seconds per pass and in all, the
         runner's spans (load, reinit, exchange, sweep, writeback, fusion),
@@ -147,27 +149,40 @@ pipeline by the CLI, as a user runs it; then frames of 1600x1200 and
         (the final round of a 2-round schedule): round-0 pass A for all six
         problems, then the modal pass B of problem 0 on that writeback with
         the stand-in support maps of phase 7;
-     b. the same at 3200x2400: problem 0's pass A, then its modal pass B,
-        the sources' depth maps their ground truth written as their
-        ``depths.dmb`` (in place of six 7.7 MP pass-A sweeps).
+     c. the final round of an ETH3D frame, 6048x4032 (``compute_round_num``
+        gives 4 rounds; round 3 sweeps the full frame): problem 0's round-3
+        pass A (``schedule_params(base, 3, None)``, REFINE_INIT with the
+        weak machinery and edges), its priors the ground-truth depth and
+        normal at 3024x2016 (``utils.synthetic.write_coarse_priors``) read
+        through the round loop's ``rescale_nearest``, then its modal pass B
+        (``schedule_params(base, 3, 0)``) on that writeback, the sources'
+        depth maps their ground truth written as their ``depths.dmb`` (in
+        place of five more 24 MP pass-A sweeps); both with the stand-in
+        support maps, on the default CUDA allocator
+        (``PYTORCH_CUDA_ALLOC_CONF`` must be unset).
+     (12b, 3200x2400, was dropped for time: 12c takes every branch it took.)
      Per sweep: seconds, synchronised stage spans, launches per kernel
      entry, the full-resolution branches taken
-     (``utils.profiling.BRANCHES``), the memory allocated and free before it
-     and its peak (``max_memory_allocated``, reset before each sweep).
-     Counters set to 0 before each pass and read after it. Bars: problem 0
-     meets phase 6's bar after pass A and phase 7's after pass B; pass A
-     launches both row kernels, pass B all five entries; pass B streams
-     its anchor profiles (``AP_STORE_MAX_PX``), regathers ``a_d0``
-     (``A_D0_STORE_MAX_PX``) and bands the weak body (``_weak_band_count``
-     > 1), and at 3200x2400 pass A stores bf16 screening volumes, scans its
-     view-selection draws (``patchmatch.FULLRES_PX``) and bands the rect
-     cost field (``rectcost.band_rows``); ``gather2d`` reads a channel over
-     6 MiB (TPU kernel row 4's regime). Every kernel entry is compared bit
-     for bit with its plain version at the first launch of each shape
-     (:class:`FirstLaunchCheck`: no copies kept, unlike :class:`Capture`),
-     and row 4's real shape is timed (kernel, library call, plain version in
-     turns, L2-cold) beside its bound. One JSON line (``fullres``) before
-     the kernels line.
+     (``utils.profiling.BRANCHES``), the memory allocated and free before it,
+     its peak (``max_memory_allocated``, reset before each sweep) and each
+     stage's peak (reset as each stage starts) with the stage that sets the
+     sweep's. Counters set to 0 before each pass and read after it. Bars:
+     problem 0 meets phase 6's bar after pass A and phase 7's after pass B;
+     pass A launches both row kernels (all five entries at 6048x4032), pass
+     B all five entries; 12a's pass B streams its anchor profiles
+     (``AP_STORE_MAX_PX``), regathers ``a_d0`` (``A_D0_STORE_MAX_PX``) and
+     bands the weak body (``_weak_band_count`` > 1); at 6048x4032 both
+     passes take these and also store bf16 screening volumes, scan their
+     view-selection draws (``patchmatch.FULLRES_PX``), band the rect cost
+     field (``rectcost.band_rows``), the anchor search
+     (``anchors.BAND_BYTES``) and classify's analysis, and chunk the
+     disparity sweeps (``patchmatch.SWEEP_CHUNK_BYTES``); ``gather2d``
+     reads a channel over 6 MiB (TPU kernel row 4's regime). Every kernel
+     entry is compared bit for bit with its plain version at the first
+     launch of each shape (:class:`FirstLaunchCheck`: no copies kept, unlike
+     :class:`Capture`), and row 4's real shape is timed (kernel, library
+     call, plain version in turns, L2-cold) beside its bound. One JSON line
+     (``fullres``) before the kernels line.
 
 Exits non-zero, without the result lines, when there is no CUDA device or
 any phase fails. The line before the last holds the kernel records as JSON
@@ -184,6 +199,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -201,14 +217,23 @@ EXACT_BUDGET_S = 800               # phase 10b runs every problem if the
                                    # script is projected to stay under
                                    # this in all (phase 11 included)
 SIDE_PAIRS = 3                     # phase 10d: (rect, exact) pairs per pass
-PARALLEL_VIEWS = 3                 # phase 11a-b: views of phase 9's scene
+PIPELINE_VIEWS = 3                 # phase 9: views of the scene (time)
+PARALLEL_VIEWS = 3                 # phase 11a-b: views of the scene
 # Staging thresholds whose per-sweep time phase 8 reports: the plan stages
 # where L >= r * W (inf: never).
 REUSE_CHOICES = (0.25, 0.5, 1, 2, 4, 8, 16, float("inf"))
 GATHERS = ("gather2d", "gather2d_hwc", "gather2d_pick")
 FLUSH_BYTES = 256 * 2**20          # > 5x the 50 MB L2
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM (NVIDIA data sheet)
-FULLRES = ((1600, 1200), (3200, 2400))   # phase 12a, 12b frames
+# Phase 12: (sub-phase, width, height, round). 12a sweeps round 0 (and the
+# modal pass B of round 1) at the size of a 2-round schedule's final round;
+# 12c round 3 of an ETH3D frame, its final round. 12b (3200x2400) was
+# dropped for time: 12c takes every branch it took (FULLRES_BRANCHES).
+FULLRES = (("a", 1600, 1200, 0), ("c", 6048, 4032, 3))
+FULLRES_BRANCHES = ("bf16 screening", "scanned draws",
+                    "banded cost evaluations", "streamed anchor profiles",
+                    "regathered a_d0", "weak bands", "anchor-search bands",
+                    "disparity-sweep chunks", "classify bands")
 ROW4_CHANNEL_BYTES = 6 * 2**20     # the JAX package's gather2d switches to
                                    # its HBM kernel (TPU row 4) above this
 F32_OPS_PER_S = 67e12              # float32 outside the tensor cores (same)
@@ -448,6 +473,15 @@ def old_free_at(free_dist, bins, iy, ix):
     return sampling.pick_last(f16, bins)
 
 
+def first_views(sc, views: int):
+    """A copy of the synthetic scene ``sc`` with its first ``views``
+    views."""
+    return dataclasses.replace(sc, images=sc.images[:views],
+                               cameras=sc.cameras[:views],
+                               gt_depths=sc.gt_depths[:views],
+                               gt_normals=sc.gt_normals[:views])
+
+
 def pipeline_phase(sc, folder: Path, launches, reset, modules) -> dict:
     """Phase 9: the scene ``sc`` written to the dense folder ``folder`` and
     run through the CLI in-process, with every check and print of the
@@ -685,12 +719,9 @@ def parallel_phase(sc, folder: Path, launches, reset, modules, seq: dict,
     from tools.torch_eval import backproject_gt, depth_scale, fscore
 
     sc_all = sc
-    sc = dataclasses.replace(sc, images=sc.images[:views],
-                             cameras=sc.cameras[:views],
-                             gt_depths=sc.gt_depths[:views],
-                             gt_normals=sc.gt_normals[:views])
+    sc = first_views(sc, views)
     phase(f"11a. the view-parallel pipeline (one NCCL rank), views 0-"
-          f"{views - 1} of phase 9's {len(sc_all.images)}")
+          f"{views - 1} of the scene's {len(sc_all.images)}")
     write_scene_folder(sc, folder)
     mesh.initialize_distributed(f"127.0.0.1:{mesh.free_port()}", 1, 0,
                                 device=device)
@@ -909,13 +940,13 @@ def parallel_phase(sc, folder: Path, launches, reset, modules, seq: dict,
 
 class FirstLaunchCheck:
     """Wraps the kernel entries during a run without keeping copies (unlike
-    :class:`Capture`, which would hold gigabytes at 3200x2400): on the first
+    :class:`Capture`, which would hold gigabytes at 6048x4032): on the first
     launch of each shape signature the kernel's output is compared, bit for
     bit, with its plain version on the same inputs, and the plain output is
     freed at once. The launch itself is the run's own, so it counts. Also
-    notes the largest channel ``gather2d`` read and keeps a reference (no
-    copy) to the inputs of the first ``gather2d`` launch whose channel
-    exceeds ROW4_CHANNEL_BYTES (TPU kernel row 4's regime), for timing."""
+    notes the largest channel ``gather2d`` read and keeps a copy of the
+    inputs of the first ``gather2d`` launch whose channel exceeds
+    ROW4_CHANNEL_BYTES (TPU kernel row 4's regime), for timing."""
 
     def __init__(self, entries, plain, exact):
         self.entries, self.plain, self.exact = entries, plain, exact
@@ -942,7 +973,9 @@ class FirstLaunchCheck:
                 ch = img.shape[-1] * img.shape[-2] * img.element_size()
                 self.max_channel_bytes = max(self.max_channel_bytes, ch)
                 if ch > ROW4_CHANNEL_BYTES and self.row4 is None:
-                    self.row4 = args
+                    # A copy: the image is a view of the sweep's weak
+                    # bundle, which a reference would keep alive.
+                    self.row4 = tuple(a.clone() for a in args)
             return out
         return wrapped
 
@@ -958,42 +991,48 @@ class FirstLaunchCheck:
 
 def fullres_phase(out_dir: Path, cfg, launches, reset, modules, plain,
                   exact) -> dict:
-    """Phase 12: full-resolution frames, 12a at 1600x1200 and 12b at
-    3200x2400 (FULLRES), 6 views each, through ``process_problem`` inside
+    """Phase 12: full-resolution frames (FULLRES), 12a at 1600x1200 and 12c
+    at 6048x4032, 6 views each, through ``process_problem`` inside
     :class:`FirstLaunchCheck`. ``exact(name, a, b, where)`` fails the script
-    unless a equals b bit for bit. Returns {"launches":
-    {path: launches}, "row4": [timing records], "summary": what the
-    ``fullres`` line prints}."""
+    unless a equals b bit for bit. Returns {"launches": {path: launches},
+    "row4": [timing records], "summary": what the ``fullres`` line
+    prints}."""
     import numpy as np
     import torch
     from dpe_mvs_tpu_torch.config import PatchMatchParams, schedule_params
     from dpe_mvs_tpu_torch.engine import patchmatch as tpm
     from dpe_mvs_tpu_torch.engine import rectcost, weak_rect
     from dpe_mvs_tpu_torch.io import formats, scene
+    from dpe_mvs_tpu_torch.ops import anchors
     from dpe_mvs_tpu_torch.pipeline import schedule as sch
     from dpe_mvs_tpu_torch.utils.profiling import BRANCHES
     from dpe_mvs_tpu_torch.utils.synthetic import make_plane_scene, \
-        support_maps
+        support_maps, write_coarse_priors
 
     base = PatchMatchParams()
-    params_a = schedule_params(base, 0, None)
-    params_b = schedule_params(base, 1, 0)
     device = torch.device("cuda")
     v_pad = VIEWS - 1
     out = {"launches": {}, "row4": [], "summary": {}}
 
     def sweep(p, params, **kw):
         """One synchronised sweep: seconds, stage spans, launches, branches
-        taken, memory free before it and its peak."""
-        spans = {}
+        taken, memory free before it, its peak, and the peak of each stage
+        (the peak counter reset as each span starts)."""
+        spans, stage_mib = {}, {}
+        peak = [0]
 
         @contextlib.contextmanager
         def timer(name):
             torch.cuda.synchronize()
+            peak[0] = max(peak[0], torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
             ts = time.time()
             yield
             torch.cuda.synchronize()
             spans[name] = spans.get(name, 0.0) + time.time() - ts
+            top = torch.cuda.max_memory_allocated()
+            peak[0] = max(peak[0], top)
+            stage_mib[name] = max(stage_mib.get(name, 0.0), top / 2**20)
 
         torch.cuda.synchronize()
         free = torch.cuda.mem_get_info()[0]
@@ -1005,18 +1044,22 @@ def fullres_phase(out_dir: Path, cfg, launches, reset, modules, plain,
         sch.process_problem(p, params, 1, 1, v_pad, cfg, device=device,
                             timer=timer, **kw)
         torch.cuda.synchronize()
+        peak_mib = max(peak[0], torch.cuda.max_memory_allocated()) / 2**20
         rec = {"problem": p.ref_image_id, "seconds": time.time() - ts,
                "spans_s": spans,
                "launches": {k: v - before[k] for k, v in launches().items()},
                "branches": dict(BRANCHES), "free_before_mib": free / 2**20,
-               "allocated_before_mib": held / 2**20,
-               "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+               "allocated_before_mib": held / 2**20, "peak_mib": peak_mib,
+               "stage_peak_mib": stage_mib,
+               "peak_stage": max(stage_mib, key=stage_mib.get)}
         print(f"problem {p.ref_image_id}: {rec['seconds']:.2f} s, peak "
-              f"{rec['peak_mib']:.1f} MiB (before it: {held / 2**20:.1f} MiB "
-              f"allocated, {free / 2**20:.1f} MiB free on the card); "
-              f"launches {rec['launches']}; branches "
+              f"{peak_mib:.1f} MiB in {rec['peak_stage']} (before it: "
+              f"{held / 2**20:.1f} MiB allocated, {free / 2**20:.1f} MiB free "
+              f"on the card); launches {rec['launches']}; branches "
               f"{rec['branches']}\n  spans (s, synchronised): " + ", ".join(
-                  f"{k} {v:.3f}" for k, v in spans.items()), flush=True)
+                  f"{k} {v:.3f}" for k, v in spans.items()) +
+              "\n  stage peaks (MiB): " + ", ".join(
+                  f"{k} {v:.1f}" for k, v in stage_mib.items()), flush=True)
         return rec
 
     def depth_stats(sc, p):
@@ -1035,9 +1078,40 @@ def fullres_phase(out_dir: Path, cfg, launches, reset, modules, plain,
                 fail(f"{label} did not take the {name} branch: "
                      f"{rec['branches']}")
 
-    for (w, h), tag in zip(FULLRES, "ab"):
+    def pass_b(sc, problems, rnd, recs):
+        """Problem 0's modal pass B on its pass-A writeback, inside the
+        caller's :class:`FirstLaunchCheck`: (launches, median relative depth
+        error, valid share)."""
+        if rnd:
+            # The sources' depth maps: their ground truth, written as their
+            # .dmb (what five more full-frame pass-A sweeps would write).
+            for p in problems[1:]:
+                p.result_folder.mkdir(parents=True, exist_ok=True)
+                formats.write_dmb(p.result_folder / "depths.dmb",
+                                  sc.gt_depths[p.ref_image_id])
+            print("pass B reads the sources' ground-truth depth maps, "
+                  "written as their depths.dmb, in place of their pass-A "
+                  "writeback", flush=True)
+        params_b = schedule_params(base, max(rnd, 1), 0)
+        p0 = problems[0]
+        inp = scene.add_pass_inputs(
+            sc.problem_inputs(0), p0.result_folder,
+            [problems[i].result_folder for i in [0] + sc.src_ids(0)],
+            **sch.pass_needs(params_b))
+        maps = support_maps(inp.images[0])
+        p0.iteration = 1
+        reset()
+        recs["B"].append(sweep(p0, params_b, inputs=inp, support_maps=maps))
+        n_b = launches()
+        del inp, maps
+        return (n_b, *depth_stats(sc, p0))
+
+    for tag, w, h, rnd in FULLRES:
         label = f"{w}x{h}"
-        phase(f"12{tag}. full-resolution frames: {label}x{VIEWS}")
+        phase(f"12{tag}. full-resolution frames: {label}x{VIEWS}, round {rnd}")
+        if rnd and os.environ.get("PYTORCH_CUDA_ALLOC_CONF"):
+            fail("PYTORCH_CUDA_ALLOC_CONF is set: the final round must fit "
+                 "the default allocator")
         t0 = time.time()
         # One round's rect hosts, built by pass A, reused by pass B (the
         # pipeline's per-round cache).
@@ -1050,57 +1124,50 @@ def fullres_phase(out_dir: Path, cfg, launches, reset, modules, plain,
                     for i in range(VIEWS)]
         st = rectcost.build_rect_host(sc.problem_inputs(0).cameras, w, h,
                                       v_pad).statics
+        params_a = schedule_params(base, rnd, None)
         print(f"scene rendered in {time.time() - t0:.1f} s; problem 0's "
               f"rect frame {st.wp}x{st.hp}; gates: rect bands over "
               f"{rectcost.BAND_FULL_BYTES:g} B, anchor profiles streamed over "
               f"{weak_rect.AP_STORE_MAX_PX} px, a_d0 regathered over "
               f"{weak_rect.A_D0_STORE_MAX_PX} px, weak bands "
               f"{weak_rect._weak_band_count(h, w)}, bf16 screening and "
-              f"scanned draws over {tpm.FULLRES_PX} px", flush=True)
-        # 12a: every problem's pass A; 12b: problem 0's.
-        ids = range(VIEWS) if tag == "a" else (0,)
+              f"scanned draws over {tpm.FULLRES_PX} px; disparity-sweep "
+              f"chunks and classify bands of {tpm.SWEEP_CHUNK_BYTES:g} B, "
+              f"anchor-search bands of {anchors.BAND_BYTES:g} B; allocator "
+              f"configuration "
+              f"{os.environ.get('PYTORCH_CUDA_ALLOC_CONF', '(default)')}",
+              flush=True)
+        # 12a: every problem's round-0 pass A; 12c: problem 0's round-3
+        # pass A (REFINE_INIT), its priors the ground truth at half the
+        # frame, read through the round loop's rescale_nearest.
+        ids = range(VIEWS) if rnd == 0 else (0,)
         recs = {"A": [], "B": []}
         with FirstLaunchCheck(modules, plain, exact) as chk:
             reset()
             for i in ids:
-                recs["A"].append(sweep(problems[i], params_a,
-                                       inputs=sc.problem_inputs(i)))
+                inp, maps = sc.problem_inputs(i), None
+                if rnd:
+                    write_coarse_priors(sc, i, problems[i].result_folder)
+                    inp = scene.add_pass_inputs(
+                        inp, problems[i].result_folder, [],
+                        **{**sch.pass_needs(params_a),
+                           "need_src_depths": False})
+                    maps = support_maps(inp.images[0])
+                recs["A"].append(sweep(problems[i], params_a, inputs=inp,
+                                       support_maps=maps))
+                del inp, maps
             n_a = launches()
             med_a, valid_a = depth_stats(sc, problems[0])
             print(f"pass A launches {n_a}; problem 0: median rel depth "
                   f"error {med_a:.5f}, valid {valid_a:.4f}", flush=True)
             if not (med_a < 0.02 and valid_a > 0.5):
                 fail(f"{label}: problem 0 misses phase 6's bar after pass A")
-            for name in ("row_gather", "bilinear_x"):
-                if n_a[name] <= 0:
+            for name, n in n_a.items():
+                if n <= 0 and (rnd or name in ("row_gather", "bilinear_x")):
                     fail(f"{label} pass A did not launch {name}")
-            if tag == "b":
-                need(f"{label} pass A", recs["A"][0],
-                     ("bf16 screening", "scanned draws",
-                      "banded cost evaluations"))
-                # The sources' depth maps: their ground truth, written as
-                # their .dmb (what six 7.7 MP pass-A sweeps would write).
-                for p in problems[1:]:
-                    p.result_folder.mkdir(parents=True, exist_ok=True)
-                    formats.write_dmb(p.result_folder / "depths.dmb",
-                                      sc.gt_depths[p.ref_image_id])
-                print("pass B reads the sources' ground-truth depth maps, "
-                      "written as their depths.dmb, in place of their "
-                      "pass-A writeback", flush=True)
-            p0 = problems[0]
-            ids0 = [0] + sc.src_ids(0)
-            inp = scene.add_pass_inputs(
-                sc.problem_inputs(0), p0.result_folder,
-                [problems[i].result_folder for i in ids0],
-                **sch.pass_needs(params_b))
-            maps = support_maps(inp.images[0])
-            p0.iteration = 1
-            reset()
-            recs["B"].append(sweep(p0, params_b, inputs=inp,
-                                   support_maps=maps))
-            n_b = launches()
-            del inp, maps
-        med_b, valid_b = depth_stats(sc, p0)
+            if rnd:
+                need(f"{label} pass A", recs["A"][0], FULLRES_BRANCHES)
+            n_b, med_b, valid_b = pass_b(sc, problems, rnd, recs)
         print(f"pass B launches {n_b}; problem 0: median rel depth error "
               f"{med_b:.5f}, valid {valid_b:.4f} (pass A {med_a:.5f})",
               flush=True)
@@ -1109,7 +1176,7 @@ def fullres_phase(out_dir: Path, cfg, launches, reset, modules, plain,
         for name, n in n_b.items():
             if n <= 0:
                 fail(f"{label} pass B did not launch {name}")
-        need(f"{label} pass B", recs["B"][0],
+        need(f"{label} pass B", recs["B"][0], FULLRES_BRANCHES if rnd else
              ("streamed anchor profiles", "regathered a_d0", "weak bands"))
         if chk.max_channel_bytes <= ROW4_CHANNEL_BYTES or chk.row4 is None:
             fail(f"{label}: gather2d read no channel over "
@@ -1136,21 +1203,22 @@ def fullres_phase(out_dir: Path, cfg, launches, reset, modules, plain,
         shape = (f"{tuple(args[0].shape)} int32 words "
                  f"({args[0][0].numel() * 4 / 2**20:.1f} MiB a channel), "
                  f"queries {tuple(args[1].shape)}")
-        print(f"gather2d, row 4's real shape ({label} pass B, the streamed "
-              f"anchor profiles): {shape}; cold ms kernel {t['kernel']:.4f}, "
-              f"library {t['library']:.4f}, plain {t['plain']:.4f}; bound "
-              f"{b_ms:.4f} ms ({b_by}), {b_ms / t['kernel']:.0%} of it",
-              flush=True)
+        print(f"gather2d, row 4's real shape ({label} pass A or B, the "
+              f"streamed anchor profiles): {shape}; cold ms kernel "
+              f"{t['kernel']:.4f}, library {t['library']:.4f}, plain "
+              f"{t['plain']:.4f}; bound {b_ms:.4f} ms ({b_by}), "
+              f"{b_ms / t['kernel']:.0%} of it", flush=True)
         row4 = {"frame": label, "shape": shape, "cold_ms": t["kernel"],
                 "library_cold_ms": t["library"], "plain_cold_ms": t["plain"],
                 "bound_ms": b_ms, "bound_by": b_by,
+                "launches_pass_a": n_a["gather2d"],
                 "launches_pass_b": n_b["gather2d"]}
         out["row4"].append(row4)
         del args, fns, chk, scratch
         out["launches"][f"{label} pass A"] = n_a
         out["launches"][f"{label} pass B"] = n_b
         out["summary"][label] = {
-            "rect_frame": [st.wp, st.hp], "pass_a": recs["A"],
+            "round": rnd, "rect_frame": [st.wp, st.hp], "pass_a": recs["A"],
             "pass_b": recs["B"], "median_a": med_a, "valid_a": valid_a,
             "median_b": med_b, "valid_b": valid_b,
             "checked_shapes": checked, "row4": row4,
@@ -1204,7 +1272,8 @@ def exact_phase(sc, out_dir: Path, cfg, v_pad: int, launches, reset,
     of ``sc``, then the modal pass B on that writeback for every problem if
     the script (which started at ``t_start``) can still end within
     EXACT_BUDGET_S with ``side_s(exact pass-A s, exact pass-B s)`` seconds
-    left for phases 10c and 10d, else for problems 0 and 1. Every kernel entry is wrapped by :class:`Capture`.
+    left for phases 10c and 10d, else for problem 0. Every kernel entry is
+    wrapped by :class:`Capture`.
     Returns {"problems", "cfg", "a"/"b": launches of the pass, "per_sweep_a"
     / "per_sweep_b": problem 0's, "counts_a" / "counts_b": problem 0's calls
     per captured signature, "cap_a" / "cap_b": the captures, "med_a",
@@ -1297,15 +1366,15 @@ def exact_phase(sc, out_dir: Path, cfg, v_pad: int, launches, reset,
                                     **sch.pass_needs(params_b))
         return {"inputs": inp, "support_maps": support_maps(inp.images[0])}
 
-    # Problems 0 and 1 first; the rest only if the script can still end in
-    # time (projected from the sweeps so far).
+    # Problem 0 first; the rest only if the script can still end in time
+    # (projected from the sweeps so far).
     t0 = time.time()
-    b, per_b, counts_b, cap_b = run_pass("B", params_b, pass_b_inputs, (0, 1))
-    per_problem = (time.time() - t0) / 2
-    rest = list(range(2, len(problems)))
+    b, per_b, counts_b, cap_b = run_pass("B", params_b, pass_b_inputs, (0,))
+    per_problem = time.time() - t0
+    rest = list(range(1, len(problems)))
     projected = time.time() - t_start + per_problem * len(rest) + \
         side_s(statistics.median(times["A"]), per_problem)
-    ran = [0, 1]
+    ran = [0]
     if rest and projected <= EXACT_BUDGET_S:
         more = run_pass("B", params_b, pass_b_inputs, rest)
         b = {k: b[k] + more[0][k] for k in b}
@@ -2038,8 +2107,8 @@ def main() -> None:
     print("pass-B stages (s, synchronised): " +
           ", ".join(f"{k} {v:.3f}" for k, v in spans.items()))
 
-    launches_p = pipeline_phase(sc, out_dir / "scene", launches, reset,
-                                modules)
+    launches_p = pipeline_phase(first_views(sc, PIPELINE_VIEWS),
+                                out_dir / "scene", launches, reset, modules)
     for name in modules:
         check(name, launches_p["seen"][name], "pipeline")
         print(f"{name}, pipeline: {len(launches_p['seen'][name])} shapes "
@@ -2089,12 +2158,13 @@ def main() -> None:
 
     # Phase 10: the exact engine on the same scene, in memory.
     rect_s = {k: statistics.median(v) for k, v in sweep_s.items()}
-    # Left after 10b: 10c, 10d and phase 11 (about half a pipeline: 11a
-    # runs 3 of the 6 views).
+    # Left after 10b: 10c, 10d and phase 11 (about phase 9's pipeline: 11a
+    # runs the same views).
     ex = exact_phase(sc, out_dir / "exact", cfg, v_pad, launches, reset,
                      modules, t_start, lambda ea, eb: SIDE_PAIRS * (
                          rect_s["A"] + rect_s["B"] + ea + eb) + 60.0
-                     + 0.5 * launches_p["summary"]["seconds"] + 60.0)
+                     + PARALLEL_VIEWS / PIPELINE_VIEWS
+                     * launches_p["summary"]["seconds"] + 60.0)
 
     phase("10c. kernels at the exact engine's shapes")
     scratch = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,

@@ -42,6 +42,16 @@ BATCH_ELEMS = 1 << 25
 # screening volumes as bf16 (``strong_rect.propagate_strong_rect``). The JAX
 # package's literal 4_000_000; module-level so that tests can force both.
 FULLRES_PX = 4_000_000
+# The disparity sweeps' memory bound at full-resolution frames: the rect
+# sweep (DepthToWeak's 61 probes, LocalRefine's 11) evaluates its probes in
+# chunks whose float32 volume, on the larger of the original grid and the
+# rect subgrid, stays within SWEEP_CHUNK_BYTES, DepthToWeak's per-pixel
+# analysis runs in row bands of as many bytes (``sampling.spans``), and the
+# weak bundle warps its 16-probe volumes back in chunks of as many bytes.
+# Exact: no probe or pixel depends on the chunks, and no draw is made. One
+# chunk and one band up to 1600x1200; module-level so that tests can force
+# many.
+SWEEP_CHUNK_BYTES = 1e9
 
 
 class Support(NamedTuple):
@@ -428,8 +438,10 @@ def view_selection(key, cost_array: torch.Tensor, prior: torch.Tensor,
     thr = _threshold(it).to(dev)
     good = cost_array < thr                                  # (8, V, H, W)
     bad = cost_array > 1.2
-    count = good.sum(0).to(torch.float32)                    # (V, H, W)
-    count_false = bad.sum(0)
+    # Counts over the 8 candidates in uint8 (a bool sum to int64 would first
+    # copy the whole mask as int64).
+    count = good.sum(0, dtype=torch.uint8).to(torch.float32)  # (V, H, W)
+    count_false = bad.sum(0, dtype=torch.uint8)
     zero = torch.zeros((), device=dev)
     tmpw = torch.where(good, torch.exp(cost_array * cost_array / -0.18),
                        zero.to(cost_array.dtype)).sum(0)
@@ -783,24 +795,13 @@ def disparity_sweep(data: SweepData, state: PMState,
     return torch.cat(out)
 
 
-def depth_to_weak(data: SweepData, state: PMState, params: PatchMatchParams,
-                  rstat=None) -> torch.Tensor:
-    """Reclassify pixels from the 61-sample disparity cost profile
-    (``DepthToWeak``, DPE.cu:2593-2747). Returns the new weak map."""
-    H, W = data.ref_image.shape
-    dev = data.device
-    radius = 30
-    disps = np.arange(-radius, radius + 1, dtype=np.float32)
-    # The rect engine takes stride-2 probe centres at working resolutions
-    # (labels only); params.classify_stride overrides the auto gate. The
-    # exact engine probes every pixel.
-    stride = 1
-    if rstat is not None:
-        stride = params.classify_stride if params.classify_stride is not None \
-            else 2 if rstat.hp * rstat.wp >= 384 * 512 else 1
-    costs = disparity_sweep(data, state, params, disps, rstat=rstat,
-                            stride=stride)                    # (61, H, W)
-
+def _classify_profile(costs: torch.Tensor, radius: int,
+                      weak_peak_radius: int) -> torch.Tensor:
+    """WEAK / STRONG per pixel of a (S, h, W) disparity cost profile
+    (``DepthToWeak``'s analysis, DPE.cu:2593-2747): the local minima
+    ("peaks") of the interior probes, the lowest of them, and the spread of
+    the others around it."""
+    dev = costs.device
     S = costs.shape[0]
     interior = torch.zeros((S,), dtype=torch.bool, device=dev)
     interior[2:S - 2] = True
@@ -822,15 +823,44 @@ def depth_to_weak(data: SweepData, state: PMState, params: PatchMatchParams,
                                  torch.zeros((), device=dev)).sum(0))
     var = var / (peak_count - 1).clamp(min=1)
 
-    off_center = (min_peak - radius).abs() > params.weak_peak_radius
+    off_center = (min_peak - radius).abs() > weak_peak_radius
     weak_t = torch.full((), WEAK, dtype=torch.uint8, device=dev)
     strong_t = torch.full((), STRONG, dtype=torch.uint8, device=dev)
-    weak_out = torch.where(
+    return torch.where(
         off_center | (cost_at_minpeak > 0.5),
         weak_t,
         torch.where(peak_count == 1,
                     torch.where(cost_at_minpeak <= 0.15, strong_t, weak_t),
                     torch.where(var > 0.2, strong_t, weak_t)))
+
+
+def depth_to_weak(data: SweepData, state: PMState, params: PatchMatchParams,
+                  rstat=None) -> torch.Tensor:
+    """Reclassify pixels from the 61-sample disparity cost profile
+    (``DepthToWeak``, DPE.cu:2593-2747). Returns the new weak map."""
+    H, W = data.ref_image.shape
+    dev = data.device
+    radius = 30
+    disps = np.arange(-radius, radius + 1, dtype=np.float32)
+    # The rect engine takes stride-2 probe centres at working resolutions
+    # (labels only); params.classify_stride overrides the auto gate. The
+    # exact engine probes every pixel.
+    stride = 1
+    if rstat is not None:
+        stride = params.classify_stride if params.classify_stride is not None \
+            else 2 if rstat.hp * rstat.wp >= 384 * 512 else 1
+    costs = disparity_sweep(data, state, params, disps, rstat=rstat,
+                            stride=stride)                    # (61, H, W)
+    # The per-pixel analysis in row bands (each pixel reads only its own
+    # probes).
+    weak_out = torch.empty((H, W), dtype=torch.uint8, device=dev)
+    bands = sampling.spans(H, 4.0 * costs.shape[0] * W, SWEEP_CHUNK_BYTES)
+    if len(bands) > 1:
+        BRANCHES["classify bands"] += len(bands)
+    for r0, r1 in bands:
+        weak_out[r0:r1] = _classify_profile(costs[:, r0:r1], radius,
+                                            params.weak_peak_radius)
+    del costs
 
     # Invalid pixels -> UNKNOWN (DPE.cu:2604-2652).
     _n_cam, origin_depth, _bl, cnt = _disparity_setup(data, state)

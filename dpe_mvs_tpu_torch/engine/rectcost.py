@@ -754,6 +754,18 @@ def _sweep_ncc_volume(rv: RectView, coeff_fn, S: int, offsets: np.ndarray,
     texture). Returns (vol VOL_INVALID-marked, gvol VOL_INVALID-marked or
     None, valid); gvol is the forward-backward reprojection error
     (``ComputeGeomConsistencyCost``, DPE.cu:915-953)."""
+    return next(_sweep_ncc_spans(rv, coeff_fn, [(0, S)], offsets,
+                                 sigma_spatial, sigma_color, with_geom,
+                                 stride))
+
+
+def _sweep_ncc_spans(rv: RectView, coeff_fn, spans, offsets: np.ndarray,
+                     sigma_spatial: float, sigma_color: float,
+                     with_geom: bool, stride: int = 1):
+    """:func:`_sweep_ncc_volume` one span of probes at a time: yields, for
+    each ``(c0, c1)`` of ``spans`` in order, the (vol, gvol, valid) of
+    probes [c0, c1), every span sharing one set of ref-side sums. A probe's
+    numbers do not depend on the spans."""
     Hp, Wp = rv.ref_rect.shape
     dev = rv.ref_rect.device
     Hs, Ws = Hp // stride, Wp // stride
@@ -768,44 +780,44 @@ def _sweep_ncc_volume(rv: RectView, coeff_fn, S: int, offsets: np.ndarray,
     inv_2ss = 1.0 / (2.0 * sigma_spatial * sigma_spatial)
     inv_2sc = 1.0 / (2.0 * sigma_color * sigma_color)
 
-    # Ref-side sums are probe-independent: one set serves all S probes.
+    # Ref-side sums are probe-independent: one set serves all S probes. Per
+    # window offset only its weight w and w * ref stay (a shifted reference
+    # frame per offset would not fit at full-resolution frames).
     z = torch.zeros((Hs, Ws), dtype=torch.float32, device=dev)
     sum_w, sum_ref, sum_ref2 = z, z.clone(), z.clone()
-    refs_by_oy, ws_by_oy, src_by_oy = [], [], []
+    ws_by_oy, src_by_oy = [], []
     for oy, oxs in rows:
         src_by_oy.append(_shift3(rv.src_rect, int(oy), 0)[::stride]
                          .contiguous())
-        refs, ws = [], []
+        wwr = []
         for ox in oxs:
-            ref_s = sub(_shift3(rv.ref_rect, int(oy), int(ox)))
-            refs.append(ref_s)
+            r = sub(_shift3(rv.ref_rect, int(oy), int(ox)))
             spatial = float(np.sqrt(ox * ox + oy * oy))
-            ws.append(torch.exp(-spatial * inv_2ss
-                                - torch.abs(ref_s - ref_c) * inv_2sc))
-        refs_by_oy.append(refs)
-        ws_by_oy.append([(w, w * r) for w, r in zip(ws, refs)])
-        for w, r in zip(ws, refs):
+            w = torch.exp(-spatial * inv_2ss - torch.abs(r - ref_c) * inv_2sc)
+            wr = w * r
+            wwr.append((w, wr))
             sum_w = sum_w + w
-            sum_ref = sum_ref + w * r
-            sum_ref2 = sum_ref2 + w * r * r
+            sum_ref = sum_ref + wr
+            sum_ref2 = sum_ref2 + wr * r
+        ws_by_oy.append(wwr)
     inv_w = 1.0 / sum_w
     m_ref = sum_ref * inv_w
     var_ref = sum_ref2 * inv_w - m_ref * m_ref
+    del sum_w, sum_ref, sum_ref2
 
     # Probe chunks bounded so the (Hs, sc, k, Ws) gather-index transient
-    # stays near GATHER_BYTES; balanced chunk size.
+    # stays near GATHER_BYTES; balanced chunk size within each span.
     k_max = max(len(oxs) for _, oxs in rows)
     sc_cap = max(1, min(S_CHUNK, int(GATHER_BYTES // (k_max * Hs * Ws * 4))))
-    n_chunks = -(-S // sc_cap)
-    sc = -(-S // n_chunks)
     ref_ok_s = sub(rv.ref_ok)[:, None] > 0.5
     src_ok_rows = rv.src_ok[::stride].contiguous()
     dep_rows = rv.src_depth_rect[::stride].contiguous() if with_geom else None
     vq = v.reshape(Hs, 1, 1)
     uq = u.reshape(1, 1, Ws)
-    vols, gvols, valids = [], [], []
-    for c0 in range(0, S, sc):
-        gxs, gys, g0s = coeff_fn(c0, min(S, c0 + sc))        # (n, Hs, Ws)
+
+    def chunk(c0, c1):
+        """(vol, gvol or None, valid), each (c1 - c0, Hs, Ws)."""
+        gxs, gys, g0s = coeff_fn(c0, c1)                     # (n, Hs, Ws)
         n = gxs.shape[0]
         gxs_t = gxs.transpose(0, 1)                          # (Hs, n, Ws)
         gys_t = gys.transpose(0, 1)
@@ -854,10 +866,8 @@ def _sweep_ncc_volume(rv: RectView, coeff_fn, S: int, offsets: np.ndarray,
         # has disparity -f*b/z < 0.
         valid = ref_ok_s & (src_ok_c > 0.5) & (xs_c >= 0.0) & \
             (xs_c <= Wp - 1.0) & (d_c < 0)
-        vols.append(torch.where(valid, cost_c,
-                                torch.full_like(cost_c, VOL_INVALID))
-                    .transpose(0, 1))
-        valids.append(valid.transpose(0, 1))
+        vol = torch.where(valid, cost_c, torch.full_like(cost_c, VOL_INVALID))
+        gvol = None
         if with_geom:
             z_src = rowgather.row_gather(dep_rows, xs_i).reshape(Hs, n, Ws)
             x_back = xs_c + rv.f * rv.b / torch.where(
@@ -865,8 +875,25 @@ def _sweep_ncc_volume(rv: RectView, coeff_fn, S: int, offsets: np.ndarray,
             err = torch.clamp(torch.abs(x_back - uq), max=GEOM_COST_MAX)
             err = torch.where((z_src > 0) & valid, err,
                               torch.full_like(err, GEOM_COST_MAX))
-            gvols.append(torch.where(valid, err,
-                                     torch.full_like(err, VOL_INVALID))
-                         .transpose(0, 1))
-    gvol = torch.cat(gvols) if with_geom else None
-    return torch.cat(vols), gvol, torch.cat(valids)
+            gvol = torch.where(valid, err, torch.full_like(
+                err, VOL_INVALID)).transpose(0, 1)
+        return vol.transpose(0, 1), gvol, valid.transpose(0, 1)
+
+    def span(s0, s1):
+        n_chunks = -(-(s1 - s0) // sc_cap)
+        sc = -(-(s1 - s0) // n_chunks)
+        vol = torch.empty((s1 - s0, Hs, Ws), dtype=torch.float32, device=dev)
+        gvol = torch.empty_like(vol) if with_geom else None
+        valid = torch.empty((s1 - s0, Hs, Ws), dtype=torch.bool, device=dev)
+        for c0 in range(s0, s1, sc):
+            c1 = min(s1, c0 + sc)
+            v_, g_, ok_ = chunk(c0, c1)
+            vol[c0 - s0:c1 - s0] = v_
+            valid[c0 - s0:c1 - s0] = ok_
+            if with_geom:
+                gvol[c0 - s0:c1 - s0] = g_
+        return vol, gvol, valid
+
+    # A span's volumes are bound to no name here while the caller holds them.
+    for s0, s1 in spans:
+        yield span(s0, s1)

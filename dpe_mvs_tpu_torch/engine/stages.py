@@ -24,7 +24,7 @@ import torch
 from ..config import PatchMatchParams, PixelState
 from ..ops import weak as weak_ops
 from . import patchmatch as pm
-from . import strong_rect, sweep, weak_rect
+from . import rectcost, strong_rect, sweep, weak_rect
 from .state import PMState, SweepData
 
 WEAK = int(PixelState.WEAK)
@@ -63,9 +63,11 @@ def _strong_iter(data: SweepData, state: PMState, it, key_it,
             state = sweep.apply_compacted(state, state.weak != WEAK, color,
                                           *out)
         return state
-    cost_fn = strong_rect.make_cost_fn(data, params, rstat)
+    stack = rectcost.build_rect_stack(data.rect, rstat)
+    cost_fn = strong_rect.make_cost_fn(data, params, rstat, stack=stack)
     stride = strong_rect.screen_stride(params, rstat)
-    cost_fn_s = (strong_rect.make_cost_fn(data, params, rstat, stride=stride)
+    cost_fn_s = (strong_rect.make_cost_fn(data, params, rstat, stride=stride,
+                                          stack=stack)
                  if stride > 1 else cost_fn)
     cnv = cost_fn(state.plane)
     for color in (0, 1):
@@ -163,6 +165,9 @@ def run_sweep_staged(data: SweepData, state: PMState,
         if params.use_APD:
             state = run("weak", _weak_iter, data, sup, state, it, key_it,
                         params, rstat, bundle)
+    # The support maps and the weak bundle serve only the iterations: free
+    # them for classify's and refine's sweeps.
+    del sup, bundle
     state = run("finish", _finish_stage, data, state, params)
     state = run("classify", _classify_stage, data, state, params, rstat)
     state = run("refine", _refine_stage, data, state, params, rstat)

@@ -167,15 +167,16 @@ def screen_stride(params: PatchMatchParams, rstat) -> int:
 
 
 def make_cost_fn(data: SweepData, params: PatchMatchParams, rstat,
-                 stride: int = 1):
+                 stride: int = 1, stack=None):
     """plane field (H, W, 4) -> (V, H, W) costs through the rectified engine.
-    Builds the view-stacked operands once, and for strided screening the
-    candidate-independent EvalCache, so every evaluation only pays the
-    source-side gathers and accumulation. Costs include the geometric term
-    in geom passes."""
+    Builds the view-stacked operands once (or takes ``stack``, to share them
+    between evaluators), and for strided screening the candidate-independent
+    EvalCache, so every evaluation only pays the source-side gathers and
+    accumulation. Costs include the geometric term in geom passes."""
     offs = pm.strong_offsets(params)
     geom = params.geom_consistency
-    stack = rectcost.build_rect_stack(data.rect, rstat)
+    if stack is None:
+        stack = rectcost.build_rect_stack(data.rect, rstat)
     cache = (rectcost.build_eval_cache(stack, params, offs, stride=stride,
                                        geom=geom)
              if stride > 1 else None)
@@ -289,18 +290,26 @@ def propagate_strong_rect(key, data: SweepData, sup, state: PMState,
         good_thr = pm._threshold(it).to(dev)
         f2, p2 = second_pass_candidate_planes(state.cost, state.plane, it)
         c2 = torch.stack([cost_fn_s(p).to(cdt) for p in p2])
-        good1 = (cost_array < good_thr).sum(1)
-        bad1 = (cost_array > 1.2).sum(1)
+        # Counts over the views in uint8: a bool sum to int64 would first
+        # copy the whole (8, V, H, W) mask as int64.
+        u8 = torch.uint8
+        good1 = (cost_array < good_thr).sum(1, dtype=u8)
+        bad1 = (cost_array > 1.2).sum(1, dtype=u8)
         c2m = torch.where(f2[:, None], c2,
                           torch.full((), COST_MAX, dtype=cdt, device=dev))
-        good2 = (c2m < good_thr).sum(1)
-        bad2 = (c2m > 1.2).sum(1)
+        good2 = (c2m < good_thr).sum(1, dtype=u8)
+        bad2 = (c2m > 1.2).sum(1, dtype=u8)
+        del c2m
         off_edge = (~data.edge)[None]
         replace = f2 & off_edge & (
             (~flags) | (good2 > good1) | ((good2 == good1) & (bad2 < bad1)))
+        del good1, bad1, good2, bad2
         cost_array = torch.where(replace[:, None], c2, cost_array)
         cand_planes = torch.where(replace[..., None], p2, cand_planes)
         flags = flags | (f2 & off_edge)
+        # Free the second pass's (8, ...) fields before view selection: at
+        # full-resolution frames they are gigabytes each.
+        del f2, p2, c2, replace
 
     prior = pm.neighbour_prior(state.selected, flags, nview)
     view_weight, temp_selected, weight_norm = pm.view_selection(
@@ -313,6 +322,7 @@ def propagate_strong_rect(key, data: SweepData, sup, state: PMState,
     min_flag = _select_k(flags, min_idx)
     min_cost = _select_k(final_costs, min_idx)
     min_plane = _select_k(cand_planes, min_idx)
+    del cand_planes, cost_array, final_costs
     if stride > 1:
         # Re-score the winning candidate exactly.
         min_cost = torch.sum(vw * cost_fn(min_plane), dim=0) / wsum

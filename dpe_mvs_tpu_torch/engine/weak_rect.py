@@ -125,10 +125,9 @@ def _probe_volume_one(rv, gx, gy, g0, offsets: np.ndarray,
     vol, gvol, _valid = _sweep_ncc_volume(
         rv, coeff_fn, PROBE_S, offsets, sigma_spatial, sigma_color,
         with_geom)
-    inv = torch.full((), VOL_INVALID, device=dev)
-    vol = torch.where(ok0[None], vol, inv)
+    vol.masked_fill_(~ok0[None], VOL_INVALID)
     if gvol is not None:
-        gvol = torch.where(ok0[None], gvol, inv)
+        gvol.masked_fill_(~ok0[None], VOL_INVALID)
     d0 = torch.where((rv.ref_ok > 0.5) & ok0, d0, torch.full_like(d0, BIG))
     return vol, gvol, d0
 
@@ -163,18 +162,22 @@ def rect_disparity_sweep(data: SweepData, state: PMState,
     their source gathers ride batched row-gather launches.
 
     ``stride=2`` evaluates the probe centers on the rect frame's even
-    subgrid and nearest-upsamples through the backward warp (classify)."""
+    subgrid and nearest-upsamples through the backward warp (classify).
+
+    The probes run in chunks (``patchmatch.SWEEP_CHUNK_BYTES``): per view, each
+    chunk's rect volume is evaluated, masked, warped back and added to its
+    rows of the (S, H, W) accumulator, so every transient is a chunk's and
+    every element sums its views in view order, as in one piece."""
     H, W = data.ref_image.shape
     dev = data.device
     S = len(disps)
-    nview = data.num_src
     cam = data.ref_cam
     n_cam, origin_depth, bl, _cnt = pm._disparity_setup(data, state)
     f = cam.fx
     offs = pm.strong_offsets(params)
     geom = params.geom_consistency
 
-    bits = pm.selected_bits(state.selected, nview)
+    bits = pm.selected_bits(state.selected, data.num_src)
     w_v = torch.where(bits, state.view_weight.permute(2, 0, 1),
                       torch.zeros((), dtype=torch.int32, device=dev))
     wsum = w_v.sum(0).to(torch.float32).clamp(min=1e-30)
@@ -183,12 +186,16 @@ def rect_disparity_sweep(data: SweepData, state: PMState,
                              device=dev)[:, None, None]
     big = torch.full_like(origin_depth, 1e30)
     disp0 = f * bl / torch.where(origin_depth > 0, origin_depth, big)
-    p_depth = f * bl[None] / (disp0[None] + dispsj)
-    in_range = (p_depth >= data.depth_min) & (p_depth <= data.depth_max)
     cmax = COST_MAX + (params.geom_factor * GEOM_COST_MAX if geom else 0.0)
+    rect_px = max(rv.ref_rect.numel() for rv in data.rect) // stride ** 2
+    chunks = sampling.spans(S, 4.0 * max(H * W, rect_px),
+                            pm.SWEEP_CHUNK_BYTES)
+    if len(chunks) > 1:
+        BRANCHES["disparity-sweep chunks"] += len(chunks)
 
     total = torch.zeros((S, H, W), dtype=torch.float32, device=dev)
     for i, rv in enumerate(data.rect):
+        # The probe-independent fields of view i, once for all chunks.
         Hp, Wp = rv.ref_rect.shape
         u = (torch.arange(Wp // stride, dtype=torch.float32, device=dev)
              * stride)[None, :]
@@ -198,8 +205,9 @@ def rect_disparity_sweep(data: SweepData, state: PMState,
             rv, statics, i,
             torch.stack([n_cam[..., 0], n_cam[..., 1], n_cam[..., 2],
                          origin_depth, bl]))
-        ch = ch[:, ::stride, ::stride]
-        ncx, ncy, ncz, od_r, bl_r = (ch[k] for k in range(5))
+        ncx, ncy, ncz, od_r, bl_r = ch[:, ::stride, ::stride].contiguous() \
+            .unbind(0)
+        del ch
         # Rect-frame normal (plane distances are frame-invariant).
         R = rv.R2r
         nrx = R[0, 0] * ncx + R[0, 1] * ncy + R[0, 2] * ncz
@@ -228,22 +236,30 @@ def rect_disparity_sweep(data: SweepData, state: PMState,
             return (rv.b * nrx[None] / safe, rv.b * nry[None] / safe,
                     rv.b * rv.f * nrz[None] / safe)
 
-        vol, gvol, valid = _sweep_ncc_volume(
-            rv, coeff_fn, S, offs, params.sigma_spatial,
+        not_ok = ~((rv.orig_ok[None] > 0.5) & data.view_valid[i])
+        vols = rectcost._sweep_ncc_spans(
+            rv, coeff_fn, chunks, offs, params.sigma_spatial,
             params.sigma_color, with_geom=geom, stride=stride)
-        cost_i = torch.where(valid, vol, torch.full_like(vol, COST_MAX))
-        if geom:
-            cost_i = cost_i + params.geom_factor * torch.where(
-                valid, gvol, torch.full_like(gvol, GEOM_COST_MAX))
-        back = rectcost.warp_bwd_channels_strided(
-            rv, statics, i, cost_i, stride)                  # (S, H, W)
-        ok = (rv.orig_ok[None] > 0.5) & data.view_valid[i]
-        back = torch.where(ok, back, torch.full_like(back, cmax))
-        total = total + w_v[i][None] * back
+        for c0, c1 in chunks:
+            vol, gvol, valid = next(vols)
+            cost_i = torch.where(valid, vol, torch.full_like(vol, COST_MAX))
+            if geom:
+                cost_i = cost_i + params.geom_factor * torch.where(
+                    valid, gvol, torch.full_like(gvol, GEOM_COST_MAX))
+            del vol, gvol, valid
+            back = rectcost.warp_bwd_channels_strided(
+                rv, statics, i, cost_i, stride)              # (n, H, W)
+            del cost_i
+            back.masked_fill_(not_ok, cmax)
+            total[c0:c1].add_(w_v[i][None] * back)
+            del back
 
-    total = total / wsum[None]
-    return torch.where(in_range, total.clamp(max=COST_MAX),
-                       torch.full_like(total, COST_MAX))
+    for c0, c1 in chunks:
+        p_depth = f * bl[None] / (disp0[None] + dispsj[c0:c1])
+        in_range = (p_depth >= data.depth_min) & (p_depth <= data.depth_max)
+        total[c0:c1].div_(wsum[None]).clamp_(max=COST_MAX) \
+            .masked_fill_(~in_range, COST_MAX)
+    return total
 
 
 def _anchor_rect_coords(rv, ax: torch.Tensor, ay: torch.Tensor):
@@ -297,7 +313,19 @@ def build_weak_bundle(data: SweepData, sup, state: PMState,
 
     store_ap = H * W <= AP_STORE_MAX_PX
     inv = torch.full((), VOL_INVALID, device=dev)
-    vols_c, vols_g, d0s, aps, a_d0s, w_chans = [], [], [], [], [], []
+    # The per-view products land in preallocated stacks (a list and its
+    # stacked copy would hold them twice at the stage's peak).
+    V = len(data.rect)
+    vol_c = torch.empty((V, PROBE_S, H, W), dtype=torch.bfloat16, device=dev)
+    vol_g = torch.empty_like(vol_c) if geom else None
+    d0 = torch.empty((V, H, W), dtype=torch.float32, device=dev)
+    w_chans = None if store_ap else torch.empty(
+        (V, PROBE_S // 2 + 1, *data.rect[0].ref_rect.shape),
+        dtype=torch.int32, device=dev)
+    aps, a_d0s = [], []
+    chunks = sampling.spans(
+        PROBE_S, 4.0 * max(H * W, data.rect[0].ref_rect.numel()),
+        pm.SWEEP_CHUNK_BYTES)
     for i, rv in enumerate(data.rect):
         gx, gy, g0 = _rect_plane_coeffs(rv, state.plane, statics, i)
         # Strong-window (center) volume, warped to the orig grid.
@@ -309,13 +337,16 @@ def build_weak_bundle(data: SweepData, sup, state: PMState,
             return rectcost.warp_bwd_channels(rv, statics, i, chans)
 
         ok_o = rv.orig_ok > 0.5
-        vols_c.append(torch.where(ok_o[None], back(vc), inv)
-                      .to(torch.bfloat16))
-        if geom:
-            vols_g.append(torch.where(ok_o[None], back(vg), inv)
-                          .to(torch.bfloat16))
-        d0s.append(torch.where(ok_o, back(d0r[None])[0],
-                               torch.full((), BIG, device=dev)))
+        # Warped back a chunk of probes at a time: the warp's transposed and
+        # expanded copies are a chunk's (each channel warps on its own).
+        for c0, c1 in chunks:
+            vol_c[i, c0:c1] = torch.where(ok_o[None], back(vc[c0:c1]), inv)
+            if geom:
+                vol_g[i, c0:c1] = torch.where(ok_o[None], back(vg[c0:c1]),
+                                              inv)
+        d0[i] = torch.where(ok_o, back(d0r[None])[0],
+                            torch.full((), BIG, device=dev))
+        del vc, vg
 
         # Weak-window (anchor) volume; the profiles ride the gather as
         # packed bf16 pairs, the probe-center disparity as its float bits.
@@ -327,7 +358,7 @@ def build_weak_bundle(data: SweepData, sup, state: PMState,
         if not store_ap:
             # Streaming mode: keep the rect-frame volume; weak iterations
             # gather their band's anchor profiles on the fly.
-            w_chans.append(chans)
+            w_chans[i] = chans
             continue
         prof, a_d0 = _gather_profiles(rv, chans, ax, ay)
         aps.append(prof)
@@ -339,13 +370,11 @@ def build_weak_bundle(data: SweepData, sup, state: PMState,
         BRANCHES["regathered a_d0"] += 1
 
     return WeakRectBundle(
-        vol_center=torch.stack(vols_c),
-        vol_geom=torch.stack(vols_g) if geom else None,
-        d0=torch.stack(d0s),
+        vol_center=vol_c, vol_geom=vol_g, d0=d0,
         ap=(torch.stack(aps).transpose(1, 2).contiguous()    # (V, 8, S, H, W)
             if store_ap else None),
         a_d0=torch.stack(a_d0s) if store_a_d0 else None,
-        w_chans=None if store_ap else torch.stack(w_chans),
+        w_chans=w_chans,
     )
 
 

@@ -21,6 +21,7 @@ import torch
 
 from ..config import PatchMatchParams, PixelState
 from ..geometry import cameras as geo
+from ..utils.profiling import BRANCHES
 from . import sampling, support
 
 WEAK = int(PixelState.WEAK)
@@ -31,6 +32,13 @@ MAX_SEARCH_RADIUS = 4096
 MIN_MARGIN = 6
 NEIGHBOUR_NUM = 9
 BIG = float(1e30)
+# The anchor search runs in row bands whose largest transient, the line-of-
+# sight test's (D, h, W, 16) float32 angle table over the D sector rays,
+# stays within BAND_BYTES: at full-resolution frames its (D, H, W) and
+# (H, W, pool) fields would not fit the card. Exact: a pixel's anchors read
+# only full-frame inputs and its own entries of the full-frame draws. One
+# band up to 1600x1200; module-level so that tests can force many.
+BAND_BYTES = 2e9
 
 
 def sector_rays(rotate_time: int) -> np.ndarray:
@@ -97,9 +105,6 @@ def gen_neighbours(key, data, state, params: PatchMatchParams, *,
     the reference runs this before RandomInitialization (DPE.cu:3168)."""
     H, W = data.ref_image.shape
     dev = data.device
-    px, py = geo.pixel_grid(H, W, dev)
-    xg = px.to(torch.int32)
-    yg = py.to(torch.int32)
     k_lim, k_ransac = key.split(2)
 
     depth_diff = data.depth_max - data.depth_min
@@ -127,12 +132,51 @@ def gen_neighbours(key, data, state, params: PatchMatchParams, *,
     rays = sector_rays(rt)                                    # (D, 2)
     max_steps_pow2 = 1 << int(math.ceil(math.log2(
         min(MAX_SEARCH_RADIUS, max(H, W)))))
+    t_hit = support.ray_first_hit_multi(strong_d, rays, max_steps_pow2)
+    must_tri = ~((data.label > 0) & edge_limit) if params.use_label \
+        else torch.ones((H, W), dtype=torch.bool, device=dev)
+
+    neighbours = torch.empty((8, H, W, 2), dtype=torch.int32, device=dev)
+    reliable = torch.empty((H, W), dtype=torch.bool, device=dev)
+    bands = sampling.spans(H, 64.0 * len(rays) * W, BAND_BYTES)
+    if len(bands) > 1:
+        BRANCHES["anchor-search bands"] += len(bands)
+    for r0, r1 in bands:
+        neighbours[:, r0:r1], reliable[r0:r1] = _anchor_band(
+            r0, r1, k_ransac, data, state, params, rays, t_hit[:, r0:r1],
+            edge_limit, must_tri, cos_thresh, ransac_threshold, label_runs,
+            los, nearest_strong)
+
+    is_weak = state.weak == WEAK
+    new_weak = torch.where(is_weak & ~reliable,
+                           torch.full((), UNKNOWN, dtype=torch.uint8,
+                                      device=dev), state.weak)
+    return neighbours, reliable, new_weak, new_complexity
+
+
+def _anchor_band(r0: int, r1: int, k_ransac, data, state,
+                 params: PatchMatchParams, rays: np.ndarray,
+                 t_hit: torch.Tensor, edge_limit: torch.Tensor,
+                 must_tri: torch.Tensor, cos_thresh: float,
+                 ransac_threshold, label_runs, los, nearest_strong):
+    """:func:`gen_neighbours` for the pixels of rows [r0, r1): ((8, h, W, 2)
+    anchors or -1 (weak pixels only), (h, W) reliable). ``t_hit``: the band's
+    (D, h, W) sector-ray hits; ``edge_limit`` and ``must_tri`` full-frame;
+    each RANSAC trial draws its full-frame indices and keeps the band's."""
+    H, W = data.ref_image.shape
+    h = r1 - r0
+    dev = data.device
+    px, py = geo.pixel_grid(H, W, dev)
+    px, py = px[r0:r1], py[r0:r1]
+    xg = px.to(torch.int32)
+    yg = py.to(torch.int32)
+    edge_limit = edge_limit[r0:r1]
+    rt = params.rotate_time
 
     # --- Sector rays, all directions at once ------------------------------
     vlen = torch.as_tensor(np.hypot(rays[:, 0], rays[:, 1]).astype(
         np.float32), device=dev)[:, None, None]
-    t_hit = support.ray_first_hit_multi(strong_d, rays, max_steps_pow2)
-    hit = t_hit < support.INF                                 # (D, H, W)
+    hit = t_hit < support.INF                                 # (D, h, W)
     vxj = torch.as_tensor(rays[:, 0], dtype=torch.int32,
                           device=dev)[:, None, None]
     vyj = torch.as_tensor(rays[:, 1], dtype=torch.int32,
@@ -140,7 +184,7 @@ def gen_neighbours(key, data, state, params: PatchMatchParams, *,
     t = torch.where(hit, t_hit, torch.ones_like(t_hit)).to(torch.int32)
     hx = xg[None] + t * vxj
     hy = yg[None] + t * vyj
-    anc = sampling.gather_map(nearest_strong, hy, hx)         # (D, H, W, 2)
+    anc = sampling.gather_map(nearest_strong, hy, hx)         # (D, h, W, 2)
     ax = anc[..., 0]
     ay = anc[..., 1]
     ok = hit & (ax >= 0)
@@ -176,12 +220,12 @@ def gen_neighbours(key, data, state, params: PatchMatchParams, *,
         n_pts_per_dir = np.array([(2 * rt - 1) if d % 2 == 0 else 1
                                   for d in range(8)], np.int32)
 
-        dist = label_runs                                     # (8, H, W)
+        dist = label_runs[:, r0:r1]                           # (8, h, W)
         gap = torch.as_tensor(n_pts_per_dir + 1, dtype=torch.float32,
                               device=dev)[:, None, None]
         step_len = (dist / gap).to(torch.int32).clamp(min=1)
         pd = torch.as_tensor(pt_dir, device=dev)
-        sl = step_len[pd]                                     # (P2, H, W)
+        sl = step_len[pd]                                     # (P2, h, W)
         ddx = torch.as_tensor(support.DIR8[pt_dir, 0], dtype=torch.int32,
                               device=dev)[:, None, None]
         ddy = torch.as_tensor(support.DIR8[pt_dir, 1], dtype=torch.int32,
@@ -190,20 +234,20 @@ def gen_neighbours(key, data, state, params: PatchMatchParams, *,
                              device=dev)[:, None, None]
         tx = xg[None] + sj * sl * ddx
         ty = yg[None] + sj * sl * ddy
-        anc2 = sampling.gather_map(nearest_strong, ty, tx)    # (P2, H, W, 2)
+        anc2 = sampling.gather_map(nearest_strong, ty, tx)    # (P2, h, W, 2)
         ax2 = anc2[..., 0]
         ay2 = anc2[..., 1]
-        label_pos = data.label > 0
-        ok2 = label_pos[None] & (dist[pd] > 0) & (ax2 >= 0)
+        label_here = data.label[r0:r1]
+        ok2 = (label_here > 0)[None] & (dist[pd] > 0) & (ax2 >= 0)
         ok2 = ok2 & (ax2 >= MIN_MARGIN) & (ay2 >= MIN_MARGIN) & \
             (ax2 < W - MIN_MARGIN) & (ay2 < H - MIN_MARGIN)
         lab_at = sampling.gather_map(data.label, ay2, ax2)
-        ok2 = ok2 & ((lab_at == 0) | (lab_at == data.label[None]))
+        ok2 = ok2 & ((lab_at == 0) | (lab_at == label_here[None]))
         pool_x.append(ax2)
         pool_y.append(ay2)
         pool_valid.append(ok2)
 
-    pool_x = torch.cat(pool_x, 0).permute(1, 2, 0)            # (H, W, P)
+    pool_x = torch.cat(pool_x, 0).permute(1, 2, 0)            # (h, W, P)
     pool_y = torch.cat(pool_y, 0).permute(1, 2, 0)
     pool_valid = torch.cat(pool_valid, 0).permute(1, 2, 0)
     # Invalid pool entries gather from the pixel's own position (pool_valid
@@ -222,32 +266,31 @@ def gen_neighbours(key, data, state, params: PatchMatchParams, *,
     need_normals = params.geom_consistency
     if need_normals:
         n_world = sampling.gather_map(state.plane[..., :3], pool_y, pool_x)
-        pool_n = geo.normal_world_to_cam(cam, n_world)       # (H, W, P, 3)
-    center_z = state.plane[..., 3]
+        pool_n = geo.normal_world_to_cam(cam, n_world)       # (h, W, P, 3)
+    center_z = state.plane[r0:r1, :, 3]
 
     # ---------------- RANSAC over the pool (DPE.cu:2302-2435) -------------
     T = 64
     limit = 0.05 if params.high_res_img else 0.005
-    must_tri = ~((data.label > 0) & edge_limit) if params.use_label \
-        else torch.ones((H, W), dtype=torch.bool, device=dev)
+    must_tri = must_tri[r0:r1]
     pick = sampling.pick_last
     pool_xf = pool_x.to(torch.float32)
     pool_yf = pool_y.to(torch.float32)
     cxs = (px - cam.cx) / cam.fx
     cys = (py - cam.cy) / cam.fy
 
-    best_plane = torch.zeros((H, W, 4), device=dev)
-    best_count = torch.full((H, W), 3, dtype=torch.int64, device=dev)
-    best_dist = torch.full((H, W), BIG, device=dev)
-    thr = torch.full((H, W), 1.0, device=dev) * ransac_threshold
-    has_norm = torch.zeros((H, W), dtype=torch.bool, device=dev)
-    has_valid = torch.zeros((H, W), dtype=torch.bool, device=dev)
+    best_plane = torch.zeros((h, W, 4), device=dev)
+    best_count = torch.full((h, W), 3, dtype=torch.int64, device=dev)
+    best_dist = torch.full((h, W), BIG, device=dev)
+    thr = torch.full((h, W), 1.0, device=dev) * ransac_threshold
+    has_norm = torch.zeros((h, W), dtype=torch.bool, device=dev)
+    has_valid = torch.zeros((h, W), dtype=torch.bool, device=dev)
 
     for k in k_ransac.split(T):
         ka, kb, kc = k.split(3)
-        ia = ka.randint((H, W), 0, P).to(dev).long()
-        ib = kb.randint((H, W), 0, P).to(dev).long()
-        ic = kc.randint((H, W), 0, P).to(dev).long()
+        ia = ka.randint((H, W), 0, P)[r0:r1].to(dev).long()
+        ib = kb.randint((H, W), 0, P)[r0:r1].to(dev).long()
+        ic = kc.randint((H, W), 0, P)[r0:r1].to(dev).long()
         distinct = (ia != ib) & (ib != ic) & (ia != ic)
 
         ax_, ay_ = pick(pool_xf, ia), pick(pool_yf, ia)
@@ -333,14 +376,8 @@ def gen_neighbours(key, data, state, params: PatchMatchParams, *,
     nb_y = torch.where(sel_valid, sampling.take_last(pool_y, top_idx), neg)
 
     reliable = has_valid & (pool_size > 3)
-    is_weak = state.weak == WEAK
-    keep = (is_weak & reliable)[..., None]
+    keep = ((state.weak[r0:r1] == WEAK) & reliable)[..., None]
     nb_x = torch.where(keep, nb_x, neg)
     nb_y = torch.where(keep, nb_y, neg)
-    neighbours = torch.stack([nb_x.permute(2, 0, 1), nb_y.permute(2, 0, 1)],
-                             dim=-1).to(torch.int32)          # (8, H, W, 2)
-
-    new_weak = torch.where(is_weak & ~reliable,
-                           torch.full((), UNKNOWN, dtype=torch.uint8,
-                                      device=dev), state.weak)
-    return neighbours, reliable, new_weak, new_complexity
+    return torch.stack([nb_x.permute(2, 0, 1), nb_y.permute(2, 0, 1)],
+                       dim=-1).to(torch.int32), reliable    # (8, h, W, 2)

@@ -161,6 +161,15 @@ def bilinear(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     return top * (1.0 - fy) + bot * fy
 
 
+def spans(n: int, item_bytes: float, cap: float):
+    """[a, b) ranges over n items of ``item_bytes`` each, balanced, every
+    range within ``cap`` bytes (at least one item): the chunks and row bands
+    that bound memory at full-resolution frames."""
+    per = n if n * item_bytes <= cap else max(1, int(cap // item_bytes))
+    size = -(-n // -(-n // per))
+    return [(a, min(a + size, n)) for a in range(0, n, size)]
+
+
 def take_last(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``take_along_axis(arr, idx, axis=-1)``: arr (..., P), idx (..., K)
     integer -> (..., K)."""

@@ -17,6 +17,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from ..config import PixelState
 from ..engine.state import CameraData, ProblemInputs
 from ..io import formats, imread
 
@@ -303,6 +304,26 @@ def write_scene_folder(scene: PlaneScene, folder) -> Path:
         pairs.append((v, [(s, 100.0) for s in scene.src_ids(v)]))
     formats.write_pair_txt(folder / "pair.txt", pairs)
     return folder
+
+
+def write_coarse_priors(scene: PlaneScene, ref: int, result_folder) -> Path:
+    """Write view ``ref``'s ground truth at half the frame into
+    ``result_folder`` as the previous round's writeback, which a later
+    round's REFINE_INIT pass A reads through ``io.scene.add_pass_inputs``
+    (``rescale_nearest`` brings it to the frame): the depth and normal of
+    every other pixel, every source view selected, every pixel STRONG."""
+    rf = Path(result_folder)
+    rf.mkdir(parents=True, exist_ok=True)
+    depth = scene.gt_depths[ref][::2, ::2]
+    n_src = len(scene.images) - 1
+    formats.write_dmb(rf / "depths.dmb", depth.astype(np.float32))
+    formats.write_dmb(rf / "normals.dmb",
+                      scene.gt_normals[ref][::2, ::2].astype(np.float32))
+    formats.write_dmb(rf / "selected_views.bin",
+                      np.full(depth.shape, (1 << n_src) - 1, np.int32))
+    formats.write_dmb(rf / "weak.bin", np.full(
+        depth.shape, int(PixelState.STRONG), np.uint8))
+    return rf
 
 
 def support_maps(image: np.ndarray, edge_percentile: float = 85.0):

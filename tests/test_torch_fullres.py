@@ -20,7 +20,8 @@
   * bf16 screening: one strong iteration with ``FULLRES_PX`` forced low
     against the port's own float32 screening (see the test's docstring for
     its agreement share).
-  * ``tools/torch_probe.py --cpu`` at a tiny frame exits 0.
+  * ``tools/torch_probe.py --cpu`` at a tiny frame exits 0, at round 0 and
+    at round 1 (``--round 1``).
 
 The scene is ``tests/test_torch_rectcost.py``'s (80x64, 3 source views),
 built once per module.
@@ -367,16 +368,22 @@ def test_warp_fields_on_torch_equal_jax_numpy(scene):
 def test_probe_runs_on_the_cpu():
     """``tools/torch_probe.py --cpu`` at a tiny frame: FIRST_INIT, then the
     modal sweep from its writeback with mid-depth source maps, the rect
-    cost field banded through the probe's own arguments."""
+    cost field banded through the probe's own arguments; then with
+    ``--round 1`` round 1's REFINE_INIT from the half-size ground truth and
+    its modal sweep, the disparity sweeps chunked and the anchor search
+    banded through the probe's arguments."""
     import json
     import os
-    res = subprocess.run(
-        [sys.executable, "tools/torch_probe.py", "32", "24", "3", "apd",
-         "geom", "--cpu", "--band-full-bytes", "0", "--band-field-bytes",
-         "30000"], cwd=ROOT, capture_output=True, text=True, timeout=300,
-        env={**os.environ, "OMP_NUM_THREADS": "1"})
-    assert res.returncode == 0, res.stdout + res.stderr
-    rec = json.loads(res.stdout.strip().splitlines()[-1])["probe"]
+
+    def probe(*args):
+        res = subprocess.run(
+            [sys.executable, "tools/torch_probe.py", "32", "24", "3", "apd",
+             "geom", "--cpu", *args], cwd=ROOT, capture_output=True,
+            text=True, timeout=300, env={**os.environ, "OMP_NUM_THREADS": "1"})
+        assert res.returncode == 0, res.stdout + res.stderr
+        return json.loads(res.stdout.strip().splitlines()[-1])["probe"]
+
+    rec = probe("--band-full-bytes", "0", "--band-field-bytes", "30000")
     assert [s["sweep"] for s in rec["sweeps"]] == ["FIRST_INIT",
                                                    "modal REFINE_ITER"]
     assert rec["band_full_bytes"] == 0
@@ -386,3 +393,15 @@ def test_probe_runs_on_the_cpu():
         assert {"rectify", "strong", "writeback"} <= set(sw["spans"])
     assert "weak" in rec["sweeps"][1]["spans"]
     assert rec["valid"] > 0.5
+
+    rec = probe("--round", "1", "--sweep-chunk-bytes", "20000",
+                "--anchor-band-bytes", "100000")
+    assert rec["round"] == 1
+    assert [s["sweep"] for s in rec["sweeps"]] == [
+        "round 1 REFINE_INIT", "round 1 modal REFINE_ITER"]
+    for sw in rec["sweeps"]:
+        assert {"support", "weakprep", "weak", "classify"} <= set(sw["spans"])
+        for name in ("disparity-sweep chunks", "classify bands",
+                     "anchor-search bands"):
+            assert sw["branches"][name] > 1, (name, sw["branches"])
+    assert rec["median_rel_err"] < 0.02 and rec["valid"] > 0.5
