@@ -10,7 +10,8 @@ REFINE_ITER, weak machinery, edges and geometric consistency) for all 6,
 reading each problem's priors and its sources' depths back from the pass-A
 writeback; then written to a dense folder and run through the whole
 pipeline by the CLI, as a user runs it; then frames of 1600x1200 and
-6048x4032 (phase 12). Phases:
+6048x4032 (phase 12); last, the weak-path envelope of
+``tools/torch_weak_compare.py`` (phase 13). Phases:
 
   1. the card's name and power limit (nvidia-smi);
   2. build the kernels from ``dpe_mvs_tpu_torch/csrc`` (one nvcc per source,
@@ -181,15 +182,33 @@ pipeline by the CLI, as a user runs it; then frames of 1600x1200 and
      entry is compared bit for bit with its plain version at the first
      launch of each shape (:class:`FirstLaunchCheck`: no copies kept, unlike
      :class:`Capture`), and row 4's real shape is timed (kernel, library
-     call, plain version in turns, L2-cold) beside its bound. One JSON line
-     (``fullres``) before the kernels line.
+     call, plain version in turns, L2-cold) beside its bound, its inputs
+     copied to host memory at their launch so that pass B's peak is the
+     sweep's own. One JSON line (``fullres``) before the kernels line;
+ 13. the weak-path envelope (cell ``weak-envelope-800x600x6``):
+     ``tools/torch_weak_compare.py`` on problem 0 of its own 800x600x6 scene
+     (``make_plane_scene(seed=17, weak_patch=True)``, its images as the
+     JAX tool's JPEG q98 files decode, its real dual-level edge and label
+     maps), a FIRST_INIT sweep then an APD + edge
+     REFINE_INIT sweep on the rect engine, then the same on the exact
+     engine, in one process, inside :class:`FirstLaunchCheck` (every entry
+     bit-exact at the first launch of each shape); counters set to 0 before
+     each run and read after it: the rect run must launch all five entries,
+     the exact run ``gather2d_hwc`` and ``gather2d_pick`` and no row
+     kernel. Then the tool's ``compare`` of the two ``.npz`` files. Bars:
+     both engines median relative depth error < 0.02 and valid share > 0.5
+     (the ratio of their weak fractions is a finding, not a bar). One JSON
+     line (``weak_envelope``): per engine median error, inliers at 1%,
+     valid share, weak fraction and seconds, the interior weak-label
+     agreement and the ratio of the weak fractions (rect / exact).
 
 Exits non-zero, without the result lines, when there is no CUDA device or
 any phase fails. The line before the last holds the kernel records as JSON
 (``launches``: the pipeline's, fusion's included; ``launches_by_path``:
 every path's, the exact engine's passes as "exact pass A" / "exact pass B",
 phase 11's as "parallel pipeline" (and per round), "mesh fusion" and "tile
-sweep", phase 12's as "fullres <frame> pass A" / "... pass B"; ``gather2d``
+sweep", phase 12's as "fullres <frame> pass A" / "... pass B", phase
+13's as "weak compare rect" / "weak compare exact"; ``gather2d``
 adds ``row4_real_paths``, row 4's real shapes timed in phase 12;
 ``exact``: phase 10c's timings); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -219,6 +238,7 @@ EXACT_BUDGET_S = 800               # phase 10b runs every problem if the
 SIDE_PAIRS = 3                     # phase 10d: (rect, exact) pairs per pass
 PIPELINE_VIEWS = 3                 # phase 9: views of the scene (time)
 PARALLEL_VIEWS = 3                 # phase 11a-b: views of the scene
+ENVELOPE_S = 90                    # phase 13's budget (s)
 # Staging thresholds whose per-sweep time phase 8 reports: the plan stages
 # where L >= r * W (inf: never).
 REUSE_CHOICES = (0.25, 0.5, 1, 2, 4, 8, 16, float("inf"))
@@ -946,7 +966,8 @@ class FirstLaunchCheck:
     freed at once. The launch itself is the run's own, so it counts. Also
     notes the largest channel ``gather2d`` read and keeps a copy of the
     inputs of the first ``gather2d`` launch whose channel exceeds
-    ROW4_CHANNEL_BYTES (TPU kernel row 4's regime), for timing."""
+    ROW4_CHANNEL_BYTES (TPU kernel row 4's regime), for timing, in host
+    memory (on the card it would count in the sweep's peak)."""
 
     def __init__(self, entries, plain, exact):
         self.entries, self.plain, self.exact = entries, plain, exact
@@ -975,7 +996,7 @@ class FirstLaunchCheck:
                 if ch > ROW4_CHANNEL_BYTES and self.row4 is None:
                     # A copy: the image is a view of the sweep's weak
                     # bundle, which a reference would keep alive.
-                    self.row4 = tuple(a.clone() for a in args)
+                    self.row4 = tuple(a.to("cpu", copy=True) for a in args)
             return out
         return wrapped
 
@@ -1187,8 +1208,9 @@ def fullres_phase(out_dir: Path, cfg, launches, reset, modules, plain,
               f"of every shape: {checked}", flush=True)
 
         # TPU kernel row 4 at its real shape: kernel, library call and
-        # plain version in turns, L2-cold, beside the bound.
-        args = chk.row4
+        # plain version in turns, L2-cold, beside the bound (its inputs
+        # back on the card from the host copy).
+        args = tuple(a.to(device) for a in chk.row4)
         scratch = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
                               device=device)
 
@@ -1484,6 +1506,62 @@ def side_by_side(sc, engines, v_pad: int, launches, reset) -> dict:
                   f"{', '.join(f'{x:.5f}' for x in o['median_err'])}",
                   flush=True)
     return out
+
+
+def weak_envelope_phase(out_dir: Path, launches, reset, modules, plain,
+                        exact) -> dict:
+    """Phase 13, the weak-path envelope (cell ``weak-envelope-800x600x6``):
+    ``tools/torch_weak_compare.py`` on problem 0 of its W x H x VIEWS scene,
+    the rect engine, then the exact engine, inside :class:`FirstLaunchCheck`
+    (``exact(name, a, b, where)`` fails the script unless a equals b bit for
+    bit), the counters set to 0 before each run and read after it; then the
+    tool's ``compare`` of the two runs' files. Fails unless the rect run
+    launched all five entries, the exact run ``gather2d_hwc`` and
+    ``gather2d_pick`` and no row kernel, and both meet the JAX tool's bars
+    (median relative depth error < 0.02, valid share > 0.5). Returns
+    {"launches": {path: launches}, "summary": what the ``weak_envelope``
+    line prints}."""
+    from tools import torch_weak_compare as twc
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    recs, n, paths = {}, {}, {}
+    with FirstLaunchCheck(modules, plain, exact) as chk:
+        for engine in twc.ENGINES:
+            reset()
+            recs[engine] = twc.run(engine, W, H, VIEWS)
+            n[engine] = launches()
+            paths[engine] = out_dir / f"wc_{engine}.npz"
+            twc.save(recs[engine], paths[engine])
+            print(f"weak compare, {engine} engine: {recs[engine]['wall']:.2f}"
+                  f" s for the two sweeps; launches {n[engine]}", flush=True)
+    checked = {name: len(sigs) for name, sigs in chk.checked.items()}
+    print(f"bit-exact against the plain versions at the first launch of "
+          f"every shape: {checked}", flush=True)
+    for name, k in n["rect"].items():
+        if k <= 0:
+            fail(f"weak compare rect did not launch {name}")
+    for name in ("gather2d_hwc", "gather2d_pick"):
+        if n["exact"][name] <= 0:
+            fail(f"weak compare exact did not launch {name}")
+    for name in ("row_gather", "bilinear_x"):
+        if n["exact"][name]:
+            fail(f"weak compare exact launched {name}")
+    env = twc.compare(paths["rect"], paths["exact"])
+    frac = env["weak_frac_raw"]
+    summary = {e: {**env[e], "weak_frac": frac[e], "seconds": r["wall"]}
+               for e, r in recs.items()}
+    summary.update(
+        frame=f"{W}x{H}x{VIEWS}",
+        weak_label_agreement=env["weak_label_agreement"],
+        weak_frac_ratio=(frac["rect"] / frac["exact"] if frac["exact"]
+                         else float("inf")),
+        checked_shapes=checked)
+    for e in twc.ENGINES:
+        if not (env[e]["median_rel"] < 0.02 and env[e]["valid"] > 0.5):
+            fail(f"weak compare {e}: misses the bars (median < 0.02, valid "
+                 f"> 0.5): {env[e]}")
+    return {"launches": {f"weak compare {e}": n[e] for e in twc.ENGINES},
+            "summary": summary}
 
 
 def exact_kernel_times(ex, modules, plain, flush) -> dict:
@@ -2158,13 +2236,14 @@ def main() -> None:
 
     # Phase 10: the exact engine on the same scene, in memory.
     rect_s = {k: statistics.median(v) for k, v in sweep_s.items()}
-    # Left after 10b: 10c, 10d and phase 11 (about phase 9's pipeline: 11a
-    # runs the same views).
+    # Left after 10b: 10c, 10d, phase 11 (about phase 9's pipeline: 11a
+    # runs the same views) and phase 13.
     ex = exact_phase(sc, out_dir / "exact", cfg, v_pad, launches, reset,
                      modules, t_start, lambda ea, eb: SIDE_PAIRS * (
                          rect_s["A"] + rect_s["B"] + ea + eb) + 60.0
                      + PARALLEL_VIEWS / PIPELINE_VIEWS
-                     * launches_p["summary"]["seconds"] + 60.0)
+                     * launches_p["summary"]["seconds"] + 60.0
+                     + ENVELOPE_S)
 
     phase("10c. kernels at the exact engine's shapes")
     scratch = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
@@ -2194,6 +2273,12 @@ def main() -> None:
     print(json.dumps({"parallel_vs_sequential": {
         "sequential": launches_p["summary"], **par["summary"]}}))
 
+    phase(f"13. the weak-path envelope: tools/torch_weak_compare.py at "
+          f"{W}x{H}x{VIEWS}")
+    env = weak_envelope_phase(out_dir / "weak_compare", launches, reset,
+                              modules, plain, exact)
+    print(json.dumps({"weak_envelope": env["summary"]}))
+
     for rec in kernels:
         name = rec["name"]
         rec["launches"] = launches_p["all"][name]
@@ -2210,7 +2295,8 @@ def main() -> None:
             "mesh fusion": par["mesh fusion"][name],
             "tile sweep": par["tile sweep"][name],
             **{f"fullres {path}": n[name]
-               for path, n in full["launches"].items()}}
+               for path, n in full["launches"].items()},
+            **{path: n[name] for path, n in env["launches"].items()}}
         if name in exact_recs:
             rec["exact"] = exact_recs[name]
         if name == "gather2d":

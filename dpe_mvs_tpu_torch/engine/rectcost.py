@@ -752,7 +752,8 @@ def _sweep_ncc_volume(rv: RectView, coeff_fn, S: int, offsets: np.ndarray,
     chunk. ``stride > 1`` evaluates the volume only on the rect frame's
     stride-subgrid of window centers (window samples keep full-resolution
     texture). Returns (vol VOL_INVALID-marked, gvol VOL_INVALID-marked or
-    None, valid); gvol is the forward-backward reprojection error
+    None): a probe is valid exactly where vol != VOL_INVALID (its cost is at
+    most COST_MAX, or NaN); gvol is the forward-backward reprojection error
     (``ComputeGeomConsistencyCost``, DPE.cu:915-953)."""
     return next(_sweep_ncc_spans(rv, coeff_fn, [(0, S)], offsets,
                                  sigma_spatial, sigma_color, with_geom,
@@ -763,8 +764,8 @@ def _sweep_ncc_spans(rv: RectView, coeff_fn, spans, offsets: np.ndarray,
                      sigma_spatial: float, sigma_color: float,
                      with_geom: bool, stride: int = 1):
     """:func:`_sweep_ncc_volume` one span of probes at a time: yields, for
-    each ``(c0, c1)`` of ``spans`` in order, the (vol, gvol, valid) of
-    probes [c0, c1), every span sharing one set of ref-side sums. A probe's
+    each ``(c0, c1)`` of ``spans`` in order, the (vol, gvol) of probes
+    [c0, c1), every span sharing one set of ref-side sums. A probe's
     numbers do not depend on the spans."""
     Hp, Wp = rv.ref_rect.shape
     dev = rv.ref_rect.device
@@ -780,26 +781,40 @@ def _sweep_ncc_spans(rv: RectView, coeff_fn, spans, offsets: np.ndarray,
     inv_2ss = 1.0 / (2.0 * sigma_spatial * sigma_spatial)
     inv_2sc = 1.0 / (2.0 * sigma_color * sigma_color)
 
+    # The reference frame edge-padded once by the window's reach: shifted by
+    # a window offset with clamped edges on the stride grid,
+    # sub(_shift3(rv.ref_rect, oy, ox)), it is a view of the padded frame.
+    reach = int(np.abs(offsets).max())
+    ref_pad = torch.nn.functional.pad(rv.ref_rect[None, None], (reach,) * 4,
+                                      mode="replicate")[0, 0]
+
+    def ref_at(oy, ox):
+        y0, x0 = reach + int(oy), reach + int(ox)
+        return ref_pad[y0:y0 + Hs * stride:stride, x0:x0 + Ws * stride:stride]
+
     # Ref-side sums are probe-independent: one set serves all S probes. Per
-    # window offset only its weight w and w * ref stay (a shifted reference
-    # frame per offset would not fit at full-resolution frames).
+    # window offset only its weight w stays; a chunk forms w * ref again
+    # where it reads it (the same float32 product: neither a shifted
+    # reference frame nor the product per offset fits at full-resolution
+    # frames, and the exp is dearer to redo than the product).
     z = torch.zeros((Hs, Ws), dtype=torch.float32, device=dev)
     sum_w, sum_ref, sum_ref2 = z, z.clone(), z.clone()
     ws_by_oy, src_by_oy = [], []
     for oy, oxs in rows:
         src_by_oy.append(_shift3(rv.src_rect, int(oy), 0)[::stride]
                          .contiguous())
-        wwr = []
+        ws = []
         for ox in oxs:
-            r = sub(_shift3(rv.ref_rect, int(oy), int(ox)))
+            r = ref_at(oy, ox)
             spatial = float(np.sqrt(ox * ox + oy * oy))
             w = torch.exp(-spatial * inv_2ss - torch.abs(r - ref_c) * inv_2sc)
             wr = w * r
-            wwr.append((w, wr))
+            ws.append(w)
             sum_w = sum_w + w
             sum_ref = sum_ref + wr
             sum_ref2 = sum_ref2 + wr * r
-        ws_by_oy.append(wwr)
+        ws_by_oy.append(ws)
+    del r, w, wr
     inv_w = 1.0 / sum_w
     m_ref = sum_ref * inv_w
     var_ref = sum_ref2 * inv_w - m_ref * m_ref
@@ -824,7 +839,7 @@ def _sweep_ncc_spans(rv: RectView, coeff_fn, spans, offsets: np.ndarray,
         g0s_t = g0s.transpose(0, 1)
         zc = torch.zeros((Hs, n, Ws), dtype=torch.float32, device=dev)
         sum_src, sum_src2, sum_rs = zc, zc.clone(), zc.clone()
-        for (oy, oxs), src_rows, wwr in zip(rows, src_by_oy, ws_by_oy):
+        for (oy, oxs), src_rows, ws in zip(rows, src_by_oy, ws_by_oy):
             k = len(oxs)
             us = u[0][None, :] + torch.tensor(oxs, dtype=torch.float32,
                                               device=dev)[:, None]
@@ -837,12 +852,12 @@ def _sweep_ncc_spans(rv: RectView, coeff_fn, spans, offsets: np.ndarray,
                 src_rows, xs4.reshape(Hs, n * k * Ws).contiguous())
             src = src.reshape(Hs, n, k, Ws)
             for j in range(k):
-                w, wr = wwr[j]
+                w = ws[j]
                 s_j = src[:, :, j]                           # (Hs, n, Ws)
                 ws_ = w[:, None] * s_j
                 sum_src += ws_
                 sum_src2.addcmul_(ws_, s_j)
-                sum_rs.addcmul_(wr[:, None], s_j)
+                sum_rs.addcmul_((w * ref_at(oy, oxs[j]))[:, None], s_j)
 
         iw = inv_w[:, None]
         m_src = sum_src * iw
@@ -877,22 +892,20 @@ def _sweep_ncc_spans(rv: RectView, coeff_fn, spans, offsets: np.ndarray,
                               torch.full_like(err, GEOM_COST_MAX))
             gvol = torch.where(valid, err, torch.full_like(
                 err, VOL_INVALID)).transpose(0, 1)
-        return vol.transpose(0, 1), gvol, valid.transpose(0, 1)
+        return vol.transpose(0, 1), gvol
 
     def span(s0, s1):
         n_chunks = -(-(s1 - s0) // sc_cap)
         sc = -(-(s1 - s0) // n_chunks)
         vol = torch.empty((s1 - s0, Hs, Ws), dtype=torch.float32, device=dev)
         gvol = torch.empty_like(vol) if with_geom else None
-        valid = torch.empty((s1 - s0, Hs, Ws), dtype=torch.bool, device=dev)
         for c0 in range(s0, s1, sc):
             c1 = min(s1, c0 + sc)
-            v_, g_, ok_ = chunk(c0, c1)
+            v_, g_ = chunk(c0, c1)
             vol[c0 - s0:c1 - s0] = v_
-            valid[c0 - s0:c1 - s0] = ok_
             if with_geom:
                 gvol[c0 - s0:c1 - s0] = g_
-        return vol, gvol, valid
+        return vol, gvol
 
     # A span's volumes are bound to no name here while the caller holds them.
     for s0, s1 in spans:

@@ -122,7 +122,7 @@ def _probe_volume_one(rv, gx, gy, g0, offsets: np.ndarray,
                 g0[None] + ds[c0:c1])
 
     ok0 = torch.abs(d0) < BIG
-    vol, gvol, _valid = _sweep_ncc_volume(
+    vol, gvol = _sweep_ncc_volume(
         rv, coeff_fn, PROBE_S, offsets, sigma_spatial, sigma_color,
         with_geom)
     vol.masked_fill_(~ok0[None], VOL_INVALID)
@@ -241,12 +241,13 @@ def rect_disparity_sweep(data: SweepData, state: PMState,
             rv, coeff_fn, chunks, offs, params.sigma_spatial,
             params.sigma_color, with_geom=geom, stride=stride)
         for c0, c1 in chunks:
-            vol, gvol, valid = next(vols)
-            cost_i = torch.where(valid, vol, torch.full_like(vol, COST_MAX))
+            vol, gvol = next(vols)
+            invalid = vol == VOL_INVALID
+            cost_i = vol.masked_fill_(invalid, COST_MAX)
             if geom:
-                cost_i = cost_i + params.geom_factor * torch.where(
-                    valid, gvol, torch.full_like(gvol, GEOM_COST_MAX))
-            del vol, gvol, valid
+                cost_i = cost_i + params.geom_factor * gvol.masked_fill_(
+                    invalid, GEOM_COST_MAX)
+            del vol, gvol, invalid
             back = rectcost.warp_bwd_channels_strided(
                 rv, statics, i, cost_i, stride)              # (n, H, W)
             del cost_i
@@ -350,17 +351,23 @@ def build_weak_bundle(data: SweepData, sup, state: PMState,
 
         # Weak-window (anchor) volume; the profiles ride the gather as
         # packed bf16 pairs, the probe-center disparity as its float bits.
-        vw, _, _ = _probe_volume_one(
+        vw = _probe_volume_one(
             rv, gx, gy, g0, offs_weak, params.sigma_spatial,
-            params.sigma_color, with_geom=False)
+            params.sigma_color, with_geom=False)[0]
         chans = torch.cat([g2d.pack_bf16_pairs(vw),
                            d0r.contiguous().view(torch.int32)[None]])
+        # This view's fields end here: held until the next view rebinds
+        # their names, they would live through its probe volumes, the
+        # stage's peak.
+        del vw, gx, gy, g0, d0r, ok_o
         if not store_ap:
             # Streaming mode: keep the rect-frame volume; weak iterations
             # gather their band's anchor profiles on the fly.
             w_chans[i] = chans
+            del chans
             continue
         prof, a_d0 = _gather_profiles(rv, chans, ax, ay)
+        del chans
         aps.append(prof)
         a_d0s.append(a_d0)
     store_a_d0 = store_ap and H * W <= A_D0_STORE_MAX_PX

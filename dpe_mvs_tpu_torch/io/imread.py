@@ -19,7 +19,9 @@ one channel three times, alpha dropped. Any other format raises
 ``ValueError`` naming it; nothing falls back silently.
 
 Writers: PNG (gray or BGR, filter 0 on every row) and JPEG at OpenCV's
-default quality 95 through Pillow.
+default quality 95 through Pillow. :func:`jpeg_roundtrip_gray` gives, in
+numpy, the pixels a gray image has after libjpeg's baseline encoder and
+decoder (what ``cv2.imread`` returns for a file ``cv2.imwrite`` made).
 """
 from __future__ import annotations
 
@@ -255,3 +257,110 @@ def write_jpeg_color(path: os.PathLike, img: np.ndarray) -> None:
     rgb = _bgr(img, "write_jpeg_color")
     Image = _pillow(path, "writing")
     Image.fromarray(rgb, "RGB").save(path, "JPEG", quality=95)
+
+
+# libjpeg's "islow" integer DCT (jfdctint.c, jidctint.c of libjpeg 6b, which
+# libjpeg-turbo keeps bit for bit): 13 fraction bits in the constants, 2
+# extra bits between the passes.
+_CONST_BITS, _PASS1_BITS = 13, 2
+(_F0_298, _F0_390, _F0_541, _F0_765, _F0_899, _F1_175, _F1_501, _F1_847,
+ _F1_961, _F2_053, _F2_562, _F3_072) = (2446, 3196, 4433, 6270, 7373, 9633,
+                                       12299, 15137, 16069, 16819, 20995,
+                                       25172)
+# The JPEG standard's luminance table (natural order), which libjpeg scales
+# by the quality.
+_LUMA_QUANT = np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99],
+    np.int64).reshape(8, 8)
+
+
+def _descale(x: np.ndarray, n: int) -> np.ndarray:
+    return (x + (1 << (n - 1))) >> n
+
+
+def _fdct_islow(d: np.ndarray, last: bool) -> np.ndarray:
+    """One pass of jpeg_fdct_islow over the last axis (8 samples)."""
+    t0, t7 = d[..., 0] + d[..., 7], d[..., 0] - d[..., 7]
+    t1, t6 = d[..., 1] + d[..., 6], d[..., 1] - d[..., 6]
+    t2, t5 = d[..., 2] + d[..., 5], d[..., 2] - d[..., 5]
+    t3, t4 = d[..., 3] + d[..., 4], d[..., 3] - d[..., 4]
+    t10, t13, t11, t12 = t0 + t3, t0 - t3, t1 + t2, t1 - t2
+    if last:
+        n = _CONST_BITS + _PASS1_BITS
+        o0, o4 = _descale(t10 + t11, _PASS1_BITS), _descale(t10 - t11,
+                                                            _PASS1_BITS)
+    else:
+        n = _CONST_BITS - _PASS1_BITS
+        o0, o4 = (t10 + t11) << _PASS1_BITS, (t10 - t11) << _PASS1_BITS
+    z1 = (t12 + t13) * _F0_541
+    o2 = _descale(z1 + t13 * _F0_765, n)
+    o6 = _descale(z1 - t12 * _F1_847, n)
+    z1, z2, z3, z4 = t4 + t7, t5 + t6, t4 + t6, t5 + t7
+    z5 = (z3 + z4) * _F1_175
+    z3 = z5 - z3 * _F1_961
+    z4 = z5 - z4 * _F0_390
+    z1, z2 = -z1 * _F0_899, -z2 * _F2_562
+    return np.stack([o0, _descale(t7 * _F1_501 + z1 + z4, n), o2,
+                     _descale(t6 * _F3_072 + z2 + z3, n), o4,
+                     _descale(t5 * _F2_053 + z2 + z4, n), o6,
+                     _descale(t4 * _F0_298 + z1 + z3, n)], -1)
+
+
+def _idct_islow(c: np.ndarray, last: bool) -> np.ndarray:
+    """One pass of jpeg_idct_islow over the last axis (8 coefficients)."""
+    z1 = (c[..., 2] + c[..., 6]) * _F0_541
+    t2 = z1 - c[..., 6] * _F1_847
+    t3 = z1 + c[..., 2] * _F0_765
+    t0 = (c[..., 0] + c[..., 4]) << _CONST_BITS
+    t1 = (c[..., 0] - c[..., 4]) << _CONST_BITS
+    t10, t13, t11, t12 = t0 + t3, t0 - t3, t1 + t2, t1 - t2
+    t0, t1, t2, t3 = c[..., 7], c[..., 5], c[..., 3], c[..., 1]
+    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
+    z5 = (z3 + z4) * _F1_175
+    z3 = z5 - z3 * _F1_961
+    z4 = z5 - z4 * _F0_390
+    z1, z2 = -z1 * _F0_899, -z2 * _F2_562
+    t0 = t0 * _F0_298 + z1 + z3
+    t1 = t1 * _F2_053 + z2 + z4
+    t2 = t2 * _F3_072 + z2 + z3
+    t3 = t3 * _F1_501 + z1 + z4
+    n = _CONST_BITS + _PASS1_BITS + 3 if last else _CONST_BITS - _PASS1_BITS
+    return np.stack([_descale(t10 + t3, n), _descale(t11 + t2, n),
+                     _descale(t12 + t1, n), _descale(t13 + t0, n),
+                     _descale(t13 - t0, n), _descale(t12 - t1, n),
+                     _descale(t11 - t2, n), _descale(t10 - t3, n)], -1)
+
+
+def jpeg_roundtrip_gray(img: np.ndarray, quality: int) -> np.ndarray:
+    """The (H, W) uint8 gray image as libjpeg's baseline codec gives it back
+    at ``quality`` (``cv2.imread(p, IMREAD_GRAYSCALE)`` of
+    ``cv2.imwrite(p, img, [IMWRITE_JPEG_QUALITY, quality])``): edge-padded
+    to whole 8x8 blocks, islow forward DCT, libjpeg's rounding quantization
+    by the quality-scaled luminance table, islow inverse DCT and its
+    range-limit table. Lossless entropy coding is left out."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim != 2:
+        raise ValueError(f"jpeg_roundtrip_gray takes (H, W) uint8, got "
+                         f"{img.dtype} {img.shape}")
+    if not 1 <= quality <= 100:
+        raise ValueError(f"JPEG quality {quality} is not in 1..100")
+    H, W = img.shape
+    Hp, Wp = -(-H // 8) * 8, -(-W // 8) * 8
+    x = np.pad(img, ((0, Hp - H), (0, Wp - W)), mode="edge").astype(np.int64)
+    blocks = (x - 128).reshape(Hp // 8, 8, Wp // 8, 8).transpose(0, 2, 1, 3)
+    coef = _fdct_islow(blocks, False)                          # rows
+    coef = _fdct_islow(coef.swapaxes(-1, -2), True).swapaxes(-1, -2)
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    qt = np.clip((_LUMA_QUANT * scale + 50) // 100, 1, 255)
+    div = qt << 3                        # the DCT's output is 8x too large
+    q = np.sign(coef) * ((np.abs(coef) + (div >> 1)) // div)
+    out = _idct_islow((q * qt).swapaxes(-1, -2), False).swapaxes(-1, -2)
+    out = _idct_islow(out, True) & 1023                         # rows
+    # libjpeg's range-limit table, indexed by the low 10 bits.
+    out = np.where(out < 512, np.minimum(out + 128, 255),
+                   np.where(out < 896, 0, out - 896))
+    return out.transpose(0, 2, 1, 3).reshape(Hp, Wp)[:H, :W] \
+        .astype(np.uint8)

@@ -7,7 +7,8 @@ and normals for the same arguments and seed, and a texture of the same kind
 (three octaves of seeded noise, bicubic-upsampled) sampled bilinearly. The
 images are quantized to uint8 as the folder version's are.
 :func:`write_scene_folder` writes a scene as a dense folder, its images as
-lossless PNG bytes (the JAX package stores JPEG).
+lossless PNG bytes (the JAX package stores JPEG; asked for, the pixels a
+JPEG decodes to).
 """
 from __future__ import annotations
 
@@ -283,20 +284,25 @@ def make_rich_scene(*, width: int = 640, height: int = 480,
                       gt_normals=gt_normals, width=width, height=height)
 
 
-def write_scene_folder(scene: PlaneScene, folder) -> Path:
+def write_scene_folder(scene: PlaneScene, folder,
+                       jpeg_quality: Optional[int] = None) -> Path:
     """Write ``scene`` as a dense folder (the folder half of the JAX
     package's ``make_plane_scene``): each view's uint8 image as PNG bytes at
     ``images/%08d.jpg`` (readers decode by signature), ``cams/%08d_cam.txt``
     with the depth line ``dmin, (dmax - dmin) / 192, 192, dmax``, and
-    ``pair.txt`` listing every other view at score 100. Returns the
-    folder."""
+    ``pair.txt`` listing every other view at score 100. With
+    ``jpeg_quality`` the images hold the pixels a JPEG at that quality
+    decodes to (``imread.jpeg_roundtrip_gray``; the JAX package writes JPEG
+    at 98), still as PNG bytes. Returns the folder."""
     folder = Path(folder)
     (folder / "images").mkdir(parents=True, exist_ok=True)
     (folder / "cams").mkdir(parents=True, exist_ok=True)
     pairs = []
     for v, (img, cam) in enumerate(zip(scene.images, scene.cameras)):
-        imread.write_png_gray(folder / "images" / f"{v:08d}.jpg",
-                              img.astype(np.uint8))
+        img = img.astype(np.uint8)
+        if jpeg_quality is not None:
+            img = imread.jpeg_roundtrip_gray(img, jpeg_quality)
+        imread.write_png_gray(folder / "images" / f"{v:08d}.jpg", img)
         dmin, dmax = cam.depth_min, cam.depth_max
         formats.write_cam_txt(folder / "cams" / f"{v:08d}_cam.txt", cam.K,
                               cam.R, cam.t, dmin, (dmax - dmin) / 192.0, 192,

@@ -8,6 +8,10 @@
     folder (JPEG, through Pillow), a ``write_scene_folder`` folder (PNG
     bytes under ``.jpg`` names) and RGB / RGBA PNG, PGM and PPM files
     written by cv2;
+  * ``jpeg_roundtrip_gray`` equals ``cv2.imdecode`` of ``cv2.imencode``
+    (libjpeg's baseline codec) exactly, at ragged sizes, every kind of
+    quality scaling and on flat, noisy and smooth images; bad arguments
+    raise;
   * ``resize_linear`` against the JAX package's (``cv2.resize``): exact at
     halvings, within 1e-4 on [0, 255] images at ragged sizes;
   * ``generate_sample_list``, ``check_images`` and ``load_problem_inputs``
@@ -122,6 +126,27 @@ def test_read_gray_equals_cv2_on_cv2_files(tmp_path):
         imread.read_gray(tmp_path / "x.jpg")
     with pytest.raises(FileNotFoundError):
         imread.read_gray(tmp_path / "missing.png")
+
+
+@pytest.mark.parametrize("quality", [1, 30, 50, 75, 95, 98, 100])
+@pytest.mark.parametrize("shape", [(48, 64), (37, 53), (1, 1), (9, 17)])
+def test_jpeg_roundtrip_gray_equals_libjpeg(shape, quality):
+    import cv2
+    rng = np.random.default_rng(quality)
+    noise = rng.integers(0, 256, shape).astype(np.uint8)
+    smooth = cv2.GaussianBlur(noise, (5, 5), 1.5)
+    for img in (noise, smooth, np.zeros(shape, np.uint8),
+                np.full(shape, 255, np.uint8)):
+        ok, buf = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY,
+                                             quality])
+        assert ok
+        np.testing.assert_array_equal(
+            imread.jpeg_roundtrip_gray(img, quality),
+            cv2.imdecode(buf, cv2.IMREAD_GRAYSCALE))
+    with pytest.raises(ValueError, match="quality"):
+        imread.jpeg_roundtrip_gray(noise, 0)
+    with pytest.raises(ValueError, match="uint8"):
+        imread.jpeg_roundtrip_gray(noise.astype(np.float32), quality)
 
 
 @pytest.mark.parametrize("shape", [(48, 64), (37, 51), (600, 800)])
