@@ -10,7 +10,8 @@ REFINE_ITER, weak machinery, edges and geometric consistency) for all 6,
 reading each problem's priors and its sources' depths back from the pass-A
 writeback; then written to a dense folder and run through the whole
 pipeline by the CLI, as a user runs it; then frames of 1600x1200 and
-6048x4032 (phase 12); last, the weak-path envelope of
+6048x4032 (phase 12) and the ETH3D final round through ``dpe_mvs`` on two
+of the 6048x4032 views (phase 14); last, the weak-path envelope of
 ``tools/torch_weak_compare.py`` (phase 13). Phases:
 
   1. the card's name and power limit (nvidia-smi);
@@ -151,17 +152,21 @@ pipeline by the CLI, as a user runs it; then frames of 1600x1200 and
         problems, then the modal pass B of problem 0 on that writeback with
         the stand-in support maps of phase 7;
      c. the final round of an ETH3D frame, 6048x4032 (``compute_round_num``
-        gives 4 rounds; round 3 sweeps the full frame): problem 0's round-3
-        pass A (``schedule_params(base, 3, None)``, REFINE_INIT with the
-        weak machinery and edges), its priors the ground-truth depth and
-        normal at 3024x2016 (``utils.synthetic.write_coarse_priors``) read
-        through the round loop's ``rescale_nearest``, then its modal pass B
-        (``schedule_params(base, 3, 0)``) on that writeback, the sources'
-        depth maps their ground truth written as their ``depths.dmb`` (in
-        place of five more 24 MP pass-A sweeps); both with the stand-in
-        support maps, on the default CUDA allocator
+        gives 4 rounds; round 3 sweeps the full frame; the six views
+        rendered in threads): problem 0's round-3 modal pass B
+        (``schedule_params(base, 3, 0)``: REFINE_ITER with the weak
+        machinery, edges and geometric consistency) on its ground truth at
+        the full frame written as its previous writeback
+        (``utils.synthetic.write_coarse_priors``: every pixel STRONG), the
+        sources' depth maps their ground truth written as their
+        ``depths.dmb``, with the stand-in support maps (the weak machinery's
+        worst case for memory), on the default CUDA allocator
         (``PYTORCH_CUDA_ALLOC_CONF`` must be unset).
-     (12b, 3200x2400, was dropped for time: 12c takes every branch it took.)
+     (12b, 3200x2400, was dropped for time: 12c takes every branch it took.
+     12c's pass A was dropped for time too: ``tools/torch_final_round.py``
+     sweeps round 3's pass A through the round loop, and
+     ``tools/torch_probe.py 6048 4032 6 apd geom --round 3`` keeps both
+     passes of problem 0.)
      Per sweep: seconds, synchronised stage spans, launches per kernel
      entry, the full-resolution branches taken
      (``utils.profiling.BRANCHES``), the memory allocated and free before it,
@@ -169,22 +174,47 @@ pipeline by the CLI, as a user runs it; then frames of 1600x1200 and
      stage's peak (reset as each stage starts) with the stage that sets the
      sweep's. Counters set to 0 before each pass and read after it. Bars:
      problem 0 meets phase 6's bar after pass A and phase 7's after pass B;
-     pass A launches both row kernels (all five entries at 6048x4032), pass
-     B all five entries; 12a's pass B streams its anchor profiles
-     (``AP_STORE_MAX_PX``), regathers ``a_d0`` (``A_D0_STORE_MAX_PX``) and
-     bands the weak body (``_weak_band_count`` > 1); at 6048x4032 both
-     passes take these and also store bf16 screening volumes, scan their
-     view-selection draws (``patchmatch.FULLRES_PX``), band the rect cost
-     field (``rectcost.band_rows``), the anchor search
-     (``anchors.BAND_BYTES``) and classify's analysis, and chunk the
+     pass A launches both row kernels, pass B all five entries; 12a's pass
+     B streams its anchor profiles (``AP_STORE_MAX_PX``), regathers ``a_d0``
+     (``A_D0_STORE_MAX_PX``) and bands the weak body (``_weak_band_count``
+     > 1); at 6048x4032 pass B takes these and also stores bf16 screening
+     volumes, scans its view-selection draws (``patchmatch.FULLRES_PX``),
+     bands the rect cost field (``rectcost.band_rows``), the anchor search
+     (``anchors.BAND_BYTES``) and classify's analysis, and chunks the
      disparity sweeps (``patchmatch.SWEEP_CHUNK_BYTES``); ``gather2d``
      reads a channel over 6 MiB (TPU kernel row 4's regime). Every kernel
      entry is compared bit for bit with its plain version at the first
      launch of each shape (:class:`FirstLaunchCheck`: no copies kept, unlike
-     :class:`Capture`), and row 4's real shape is timed (kernel, library
-     call, plain version in turns, L2-cold) beside its bound, its inputs
-     copied to host memory at their launch so that pass B's peak is the
-     sweep's own. One JSON line (``fullres``) before the kernels line;
+     :class:`Capture`; the comparisons kept out of the peaks), and row 4's
+     real shape is timed (kernel, library call, plain version in turns,
+     L2-cold) beside its bound, its inputs copied to host memory at their
+     launch so that pass B's peak is the sweep's own. Every sweep sweeps in
+     the rect frame the round loop gives every problem of the round
+     (``schedule.round_rect_frame`` on the scene written as a dense folder:
+     7296x6456 at 6048x4032, where problem 0's own is 6528x6456), and every
+     sweep's peak must be under PEAK_LIMIT_MIB (57220). One JSON line
+     (``fullres``) before the kernels line;
+ 14. the ETH3D final round through the round loop (run right after phase
+     12, on 12c's scene): ``tools/torch_final_round.run`` in-process on the
+     first FINAL_VIEWS (2) views of 12c's 6048x4032 scene (two problems,
+     each the other's source), resumed after FINAL_RESUME (14): the dense
+     folder written, every problem's ground truth at the full frame written
+     as iteration 14's state with ``DPE/progress.json``, then
+     ``api.dpe_mvs(folder, resume=True, fusion=True, depth, normal, weak,
+     edge)`` on the card: the edge and label maps of all four scales,
+     round 3's last pass B (problem 1 reads problem 0's map of this
+     iteration), the exports, fusion to ``DPE/DPE.ply`` and the cleanup,
+     inside :class:`FirstLaunchCheck` (every entry bit-exact at the first
+     launch of each shape, fusion's ``gather2d_hwc`` at 6048x4032 among
+     them). Counters set to 0 just before the run and read just after: all
+     five entries must have launched, fusion ``gather2d_hwc`` 3 times per
+     (reference, source) pair. Bars: every problem's median relative depth
+     error < 0.02 and valid share > 0.5, more than 100 000 points with
+     precision > 0.9 (``tools/torch_eval.fscore``, tau = 0.005 x the median
+     depth), every sweep's peak under PEAK_LIMIT_MIB (57220). Fusion's
+     ``gather2d_hwc`` shapes timed (kernel, library call, plain version in
+     turns, L2-cold) beside their bounds. One JSON line (``final_round``:
+     the tool's record and those timings);
  13. the weak-path envelope (cell ``weak-envelope-800x600x6``):
      ``tools/torch_weak_compare.py`` on problem 0 of its own 800x600x6 scene
      (``make_plane_scene(seed=17, weak_patch=True)``, its images as the
@@ -208,8 +238,10 @@ any phase fails. The line before the last holds the kernel records as JSON
 every path's, the exact engine's passes as "exact pass A" / "exact pass B",
 phase 11's as "parallel pipeline" (and per round), "mesh fusion" and "tile
 sweep", phase 12's as "fullres <frame> pass A" / "... pass B", phase
-13's as "weak compare rect" / "weak compare exact"; ``gather2d``
-adds ``row4_real_paths``, row 4's real shapes timed in phase 12;
+14's as "final round" and "final round fusion", phase 13's as "weak
+compare rect" / "weak compare exact"; ``gather2d`` adds
+``row4_real_paths``, row 4's real shapes timed in phase 12;
+``gather2d_hwc`` adds ``final_round_fusion``, phase 14's fusion shapes;
 ``exact``: phase 10c's timings); the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -247,13 +279,20 @@ FLUSH_BYTES = 256 * 2**20          # > 5x the 50 MB L2
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM (NVIDIA data sheet)
 # Phase 12: (sub-phase, width, height, round). 12a sweeps round 0 (and the
 # modal pass B of round 1) at the size of a 2-round schedule's final round;
-# 12c round 3 of an ETH3D frame, its final round. 12b (3200x2400) was
-# dropped for time: 12c takes every branch it took (FULLRES_BRANCHES).
+# 12c the modal pass B of round 3 of an ETH3D frame, its final round. 12b
+# (3200x2400) was dropped for time: 12c takes every branch it took
+# (FULLRES_BRANCHES).
 FULLRES = (("a", 1600, 1200, 0), ("c", 6048, 4032, 3))
 FULLRES_BRANCHES = ("bf16 screening", "scanned draws",
                     "banded cost evaluations", "streamed anchor profiles",
                     "regathered a_d0", "weak bands", "anchor-search bands",
                     "disparity-sweep chunks", "classify bands")
+PEAK_LIMIT_MIB = 57220             # a sweep's device peak at large frames
+# Phase 14: the final round through the round loop on the first FINAL_VIEWS
+# views of 12c's scene, resumed after FINAL_RESUME (before round 3's last
+# pass B).
+FINAL_VIEWS = 2
+FINAL_RESUME = 14
 ROW4_CHANNEL_BYTES = 6 * 2**20     # the JAX package's gather2d switches to
                                    # its HBM kernel (TPU row 4) above this
 F32_OPS_PER_S = 67e12              # float32 outside the tensor cores (same)
@@ -964,39 +1003,71 @@ class FirstLaunchCheck:
     launch of each shape signature the kernel's output is compared, bit for
     bit, with its plain version on the same inputs, and the plain output is
     freed at once. The launch itself is the run's own, so it counts. Also
-    notes the largest channel ``gather2d`` read and keeps a copy of the
-    inputs of the first ``gather2d`` launch whose channel exceeds
-    ROW4_CHANNEL_BYTES (TPU kernel row 4's regime), for timing, in host
-    memory (on the card it would count in the sweep's peak)."""
+    notes the largest channel ``gather2d`` read (``max_channel_bytes``).
+    ``keep`` maps an entry to a predicate of its arguments: the inputs of
+    the first launch of each shape signature that it accepts are copied to
+    host memory (``kept[name][sig]``; on the card they would count in the
+    run's peak), for timing, and its accepted launches are counted per
+    signature (``kept_launches``). With ``own_peak`` the comparisons and
+    copies stay out of the card's peak counter: the peak the run reached
+    before each is noted and the counter reset after it, and
+    :meth:`max_allocated` / :meth:`reset_peak` stand for
+    ``torch.cuda.max_memory_allocated`` / ``reset_peak_memory_stats``."""
 
-    def __init__(self, entries, plain, exact):
+    def __init__(self, entries, plain, exact, keep=None, own_peak=False):
         self.entries, self.plain, self.exact = entries, plain, exact
         self.orig = {n: getattr(m, n) for n, m in entries.items()}
         self.checked = {n: set() for n in entries}
         self.max_channel_bytes = 0
-        self.row4 = None
+        self.keep = dict(keep or {})
+        self.kept = {n: {} for n in entries}
+        self.kept_launches = {n: {} for n in entries}
+        self.own_peak, self.noted_peak = own_peak, 0
+
+    def max_allocated(self) -> int:
+        import torch
+        return max(torch.cuda.max_memory_allocated(), self.noted_peak)
+
+    def reset_peak(self) -> None:
+        import torch
+        torch.cuda.reset_peak_memory_stats()
+        self.noted_peak = 0
 
     def _wrap(self, name):
+        import torch
         fn, ref = self.orig[name], self.plain[name]
-        checked = self.checked[name]
+        checked, kept = self.checked[name], self.kept[name]
 
         def wrapped(*args):
             out = fn(*args)
             sig = tuple((tuple(a.shape), str(a.dtype), tuple(a.stride()))
                         for a in args)
+            if name == "gather2d":
+                img = args[0]
+                self.max_channel_bytes = max(
+                    self.max_channel_bytes,
+                    img.shape[-1] * img.shape[-2] * img.element_size())
+            keep = name in self.keep and self.keep[name](args)
+            if sig in checked and (not keep or sig in kept):
+                if keep:
+                    kept_n = self.kept_launches[name]
+                    kept_n[sig] += 1
+                return out
+            if self.own_peak:
+                self.noted_peak = max(self.noted_peak,
+                                      torch.cuda.max_memory_allocated())
             if sig not in checked:
                 checked.add(sig)
                 want = ref(*args)
                 self.exact(name, out, want, f"{sig} (first launch)")
                 del want
-            if name == "gather2d":
-                img = args[0]
-                ch = img.shape[-1] * img.shape[-2] * img.element_size()
-                self.max_channel_bytes = max(self.max_channel_bytes, ch)
-                if ch > ROW4_CHANNEL_BYTES and self.row4 is None:
-                    # A copy: the image is a view of the sweep's weak
-                    # bundle, which a reference would keep alive.
-                    self.row4 = tuple(a.to("cpu", copy=True) for a in args)
+            if keep:
+                # A copy: the inputs may be views of the run's tensors,
+                # which a reference would keep alive.
+                kept[sig] = tuple(a.to("cpu", copy=True) for a in args)
+                self.kept_launches[name][sig] = 1
+            if self.own_peak:
+                torch.cuda.reset_peak_memory_stats()
             return out
         return wrapped
 
@@ -1017,7 +1088,7 @@ def fullres_phase(out_dir: Path, cfg, launches, reset, modules, plain,
     :class:`FirstLaunchCheck`. ``exact(name, a, b, where)`` fails the script
     unless a equals b bit for bit. Returns {"launches": {path: launches},
     "row4": [timing records], "summary": what the ``fullres`` line
-    prints}."""
+    prints, "scene": 12c's scene, for phase 14}."""
     import numpy as np
     import torch
     from dpe_mvs_tpu_torch.config import PatchMatchParams, schedule_params
@@ -1028,44 +1099,44 @@ def fullres_phase(out_dir: Path, cfg, launches, reset, modules, plain,
     from dpe_mvs_tpu_torch.pipeline import schedule as sch
     from dpe_mvs_tpu_torch.utils.profiling import BRANCHES
     from dpe_mvs_tpu_torch.utils.synthetic import make_plane_scene, \
-        support_maps, write_coarse_priors
+        support_maps, write_coarse_priors, write_scene_folder
 
     base = PatchMatchParams()
     device = torch.device("cuda")
-    v_pad = VIEWS - 1
     out = {"launches": {}, "row4": [], "summary": {}}
 
-    def sweep(p, params, **kw):
-        """One synchronised sweep: seconds, stage spans, launches, branches
-        taken, memory free before it, its peak, and the peak of each stage
-        (the peak counter reset as each span starts)."""
+    def sweep(p, params, chk, **kw):
+        """One synchronised sweep in the round's rect frame: seconds, stage
+        spans, launches, branches taken, memory free before it, its peak,
+        and the peak of each stage (the peak counter reset as each span
+        starts; ``chk``'s comparisons kept out of it)."""
         spans, stage_mib = {}, {}
         peak = [0]
 
         @contextlib.contextmanager
         def timer(name):
             torch.cuda.synchronize()
-            peak[0] = max(peak[0], torch.cuda.max_memory_allocated())
-            torch.cuda.reset_peak_memory_stats()
+            peak[0] = max(peak[0], chk.max_allocated())
+            chk.reset_peak()
             ts = time.time()
             yield
             torch.cuda.synchronize()
             spans[name] = spans.get(name, 0.0) + time.time() - ts
-            top = torch.cuda.max_memory_allocated()
+            top = chk.max_allocated()
             peak[0] = max(peak[0], top)
             stage_mib[name] = max(stage_mib.get(name, 0.0), top / 2**20)
 
         torch.cuda.synchronize()
         free = torch.cuda.mem_get_info()[0]
         held = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
+        chk.reset_peak()
         before = launches()
         BRANCHES.clear()
         ts = time.time()
         sch.process_problem(p, params, 1, 1, v_pad, cfg, device=device,
-                            timer=timer, **kw)
+                            timer=timer, rect_frame=frame, **kw)
         torch.cuda.synchronize()
-        peak_mib = max(peak[0], torch.cuda.max_memory_allocated()) / 2**20
+        peak_mib = max(peak[0], chk.max_allocated()) / 2**20
         rec = {"problem": p.ref_image_id, "seconds": time.time() - ts,
                "spans_s": spans,
                "launches": {k: v - before[k] for k, v in launches().items()},
@@ -1099,9 +1170,9 @@ def fullres_phase(out_dir: Path, cfg, launches, reset, modules, plain,
                 fail(f"{label} did not take the {name} branch: "
                      f"{rec['branches']}")
 
-    def pass_b(sc, problems, rnd, recs):
-        """Problem 0's modal pass B on its pass-A writeback, inside the
-        caller's :class:`FirstLaunchCheck`: (launches, median relative depth
+    def pass_b(sc, problems, rnd, recs, chk):
+        """Problem 0's modal pass B on its pass-A writeback (12a) or its
+        ground truth (12c), inside ``chk``: (launches, median relative depth
         error, valid share)."""
         if rnd:
             # The sources' depth maps: their ground truth, written as their
@@ -1122,11 +1193,13 @@ def fullres_phase(out_dir: Path, cfg, launches, reset, modules, plain,
         maps = support_maps(inp.images[0])
         p0.iteration = 1
         reset()
-        recs["B"].append(sweep(p0, params_b, inputs=inp, support_maps=maps))
+        recs["B"].append(sweep(p0, params_b, chk, inputs=inp,
+                               support_maps=maps))
         n_b = launches()
         del inp, maps
         return (n_b, *depth_stats(sc, p0))
 
+    v_pad = VIEWS - 1
     for tag, w, h, rnd in FULLRES:
         label = f"{w}x{h}"
         phase(f"12{tag}. full-resolution frames: {label}x{VIEWS}, round {rnd}")
@@ -1134,20 +1207,23 @@ def fullres_phase(out_dir: Path, cfg, launches, reset, modules, plain,
             fail("PYTORCH_CUDA_ALLOC_CONF is set: the final round must fit "
                  "the default allocator")
         t0 = time.time()
-        # One round's rect hosts, built by pass A, reused by pass B (the
-        # pipeline's per-round cache).
+        # One round's rect hosts, built by the first sweep of a problem,
+        # reused by its next (the pipeline's per-round cache).
         sch._RECT_HOSTS.clear()
         sc = make_plane_scene(width=w, height=h, num_views=VIEWS, seed=SEED)
-        folder = out_dir / label
+        render_s = time.time() - t0
+        folder = write_scene_folder(sc, out_dir / label)
         problems = [scene.Problem(index=i, ref_image_id=i,
                                   src_image_ids=sc.src_ids(i),
                                   dense_folder=folder)
                     for i in range(VIEWS)]
-        st = rectcost.build_rect_host(sc.problem_inputs(0).cameras, w, h,
-                                      v_pad).statics
+        # The rect frame the round loop sweeps every problem of the round
+        # in: the largest any pair of any problem needs.
+        frame = sch.round_rect_frame(problems, 1, v_pad)
         params_a = schedule_params(base, rnd, None)
-        print(f"scene rendered in {time.time() - t0:.1f} s; problem 0's "
-              f"rect frame {st.wp}x{st.hp}; gates: rect bands over "
+        print(f"scene rendered in {render_s:.1f} s (views in threads), "
+              f"written in {time.time() - t0 - render_s:.1f} s; the round's "
+              f"rect frame {frame[0]}x{frame[1]}; gates: rect bands over "
               f"{rectcost.BAND_FULL_BYTES:g} B, anchor profiles streamed over "
               f"{weak_rect.AP_STORE_MAX_PX} px, a_d0 regathered over "
               f"{weak_rect.A_D0_STORE_MAX_PX} px, weak bands "
@@ -1158,48 +1234,57 @@ def fullres_phase(out_dir: Path, cfg, launches, reset, modules, plain,
               f"configuration "
               f"{os.environ.get('PYTORCH_CUDA_ALLOC_CONF', '(default)')}",
               flush=True)
-        # 12a: every problem's round-0 pass A; 12c: problem 0's round-3
-        # pass A (REFINE_INIT), its priors the ground truth at half the
-        # frame, read through the round loop's rescale_nearest.
-        ids = range(VIEWS) if rnd == 0 else (0,)
+        # 12a: every problem's round-0 pass A. 12c sweeps no pass A (a cut
+        # for time; tools/torch_final_round.py runs round 3's through the
+        # round loop): problem 0's pass B starts from its full-frame ground
+        # truth, written as its previous sweep's writeback, as phase 14
+        # writes it. The inputs of the first gather2d launch of each shape
+        # in TPU kernel row 4's regime are kept on the host, for timing.
         recs = {"A": [], "B": []}
-        with FirstLaunchCheck(modules, plain, exact) as chk:
-            reset()
-            for i in ids:
-                inp, maps = sc.problem_inputs(i), None
-                if rnd:
-                    write_coarse_priors(sc, i, problems[i].result_folder)
-                    inp = scene.add_pass_inputs(
-                        inp, problems[i].result_folder, [],
-                        **{**sch.pass_needs(params_a),
-                           "need_src_depths": False})
-                    maps = support_maps(inp.images[0])
-                recs["A"].append(sweep(problems[i], params_a, inputs=inp,
-                                       support_maps=maps))
-                del inp, maps
-            n_a = launches()
-            med_a, valid_a = depth_stats(sc, problems[0])
-            print(f"pass A launches {n_a}; problem 0: median rel depth "
-                  f"error {med_a:.5f}, valid {valid_a:.4f}", flush=True)
-            if not (med_a < 0.02 and valid_a > 0.5):
-                fail(f"{label}: problem 0 misses phase 6's bar after pass A")
-            for name, n in n_a.items():
-                if n <= 0 and (rnd or name in ("row_gather", "bilinear_x")):
-                    fail(f"{label} pass A did not launch {name}")
-            if rnd:
-                need(f"{label} pass A", recs["A"][0], FULLRES_BRANCHES)
-            n_b, med_b, valid_b = pass_b(sc, problems, rnd, recs)
+        n_a, med_a, valid_a = None, None, None
+        row4_regime = {"gather2d": lambda args: (
+            args[0].shape[-1] * args[0].shape[-2] * args[0].element_size()
+            > ROW4_CHANNEL_BYTES)}
+        with FirstLaunchCheck(modules, plain, exact, keep=row4_regime,
+                              own_peak=True) as chk:
+            if rnd == 0:
+                reset()
+                for i in range(VIEWS):
+                    recs["A"].append(sweep(problems[i], params_a, chk,
+                                           inputs=sc.problem_inputs(i)))
+                n_a = launches()
+                med_a, valid_a = depth_stats(sc, problems[0])
+                print(f"pass A launches {n_a}; problem 0: median rel depth "
+                      f"error {med_a:.5f}, valid {valid_a:.4f}", flush=True)
+                if not (med_a < 0.02 and valid_a > 0.5):
+                    fail(f"{label}: problem 0 misses phase 6's bar after "
+                         "pass A")
+                for name in ("row_gather", "bilinear_x"):
+                    if n_a[name] <= 0:
+                        fail(f"{label} pass A did not launch {name}")
+            else:
+                write_coarse_priors(sc, 0, problems[0].result_folder, 1)
+                print("no pass A: problem 0's pass B starts from its "
+                      "ground truth at the full frame (every pixel STRONG)",
+                      flush=True)
+            n_b, med_b, valid_b = pass_b(sc, problems, rnd, recs, chk)
         print(f"pass B launches {n_b}; problem 0: median rel depth error "
-              f"{med_b:.5f}, valid {valid_b:.4f} (pass A {med_a:.5f})",
+              f"{med_b:.5f}, valid {valid_b:.4f} (pass A {med_a})",
               flush=True)
-        if not (med_b < 0.02 and valid_b > 0.5 and med_b <= med_a + 0.003):
+        if not (med_b < 0.02 and valid_b > 0.5
+                and (med_a is None or med_b <= med_a + 0.003)):
             fail(f"{label}: problem 0 misses phase 7's bar after pass B")
         for name, n in n_b.items():
             if n <= 0:
                 fail(f"{label} pass B did not launch {name}")
         need(f"{label} pass B", recs["B"][0], FULLRES_BRANCHES if rnd else
              ("streamed anchor profiles", "regathered a_d0", "weak bands"))
-        if chk.max_channel_bytes <= ROW4_CHANNEL_BYTES or chk.row4 is None:
+        for rec in recs["A"] + recs["B"]:
+            if rec["peak_mib"] >= PEAK_LIMIT_MIB:
+                fail(f"{label}: problem {rec['problem']}'s sweep peaked at "
+                     f"{rec['peak_mib']:.1f} MiB in {rec['peak_stage']}, "
+                     f"not under {PEAK_LIMIT_MIB} MiB")
+        if not chk.kept["gather2d"]:
             fail(f"{label}: gather2d read no channel over "
                  f"{ROW4_CHANNEL_BYTES} bytes (largest "
                  f"{chk.max_channel_bytes})")
@@ -1210,7 +1295,8 @@ def fullres_phase(out_dir: Path, cfg, launches, reset, modules, plain,
         # TPU kernel row 4 at its real shape: kernel, library call and
         # plain version in turns, L2-cold, beside the bound (its inputs
         # back on the card from the host copy).
-        args = tuple(a.to(device) for a in chk.row4)
+        args = tuple(a.to(device) for a in next(iter(
+            chk.kept["gather2d"].values())))
         scratch = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
                               device=device)
 
@@ -1233,22 +1319,108 @@ def fullres_phase(out_dir: Path, cfg, launches, reset, modules, plain,
         row4 = {"frame": label, "shape": shape, "cold_ms": t["kernel"],
                 "library_cold_ms": t["library"], "plain_cold_ms": t["plain"],
                 "bound_ms": b_ms, "bound_by": b_by,
-                "launches_pass_a": n_a["gather2d"],
+                "launches_pass_a": None if n_a is None else n_a["gather2d"],
                 "launches_pass_b": n_b["gather2d"]}
         out["row4"].append(row4)
         del args, fns, chk, scratch
-        out["launches"][f"{label} pass A"] = n_a
+        if n_a is not None:
+            out["launches"][f"{label} pass A"] = n_a
         out["launches"][f"{label} pass B"] = n_b
         out["summary"][label] = {
-            "round": rnd, "rect_frame": [st.wp, st.hp], "pass_a": recs["A"],
+            "round": rnd, "views": VIEWS, "rect_frame": list(frame),
+            "pass_a": recs["A"],
             "pass_b": recs["B"], "median_a": med_a, "valid_a": valid_a,
             "median_b": med_b, "valid_b": valid_b,
-            "checked_shapes": checked, "row4": row4,
+            "checked_shapes": checked, "row4": row4, "render_s": render_s,
             "seconds": time.time() - t0}
+        out["scene"] = sc
         del sc, problems
         sch._RECT_HOSTS.clear()
         shutil.rmtree(folder, ignore_errors=True)
     return out
+
+
+def final_round_phase(sc, out_dir: Path, launches, reset, modules, plain,
+                      exact, device) -> dict:
+    """Phase 14: the ETH3D final round through the round loop,
+    ``tools/torch_final_round.run`` in-process on the first FINAL_VIEWS
+    views of ``sc`` (12c's scene), resumed after FINAL_RESUME (round 3's
+    last pass B, then the exports and fusion), inside
+    :class:`FirstLaunchCheck`, fusion's ``gather2d_hwc`` inputs kept and
+    timed (kernel, library call, plain version in turns, L2-cold) beside
+    their bounds, on ``device`` (the card). ``exact(name, a, b, where)``
+    fails the script unless a equals b bit for bit. Returns {"launches": the
+    run's, "fusion": fusion's, "fusion_hwc": the timing records, "summary":
+    the tool's record}."""
+    import torch
+    from tools import torch_final_round as tfr
+
+    sc = first_views(sc, FINAL_VIEWS)
+    with FirstLaunchCheck(modules, plain, exact) as chk:
+        @contextlib.contextmanager
+        def keep_fusion_inputs():
+            chk.keep = {"gather2d_hwc": lambda args: True}
+            try:
+                yield
+            finally:
+                chk.keep = {}
+        reset()
+        res = tfr.run(resume_iteration=FINAL_RESUME, out=out_dir,
+                      device=device, scene=sc,
+                      around_fusion=keep_fusion_inputs)
+        n = launches()
+    checked = {name: len(sigs) for name, sigs in chk.checked.items()}
+    print(f"bit-exact against the plain versions at the first launch of "
+          f"every shape: {checked}", flush=True)
+    for v, rep in res["problems"].items():
+        if not (rep["median_rel_err"] < 0.02 and rep["valid"] > 0.5):
+            fail(f"final round: problem {v} misses the bar: {rep}")
+    cloud = res["cloud"]
+    if not (cloud["points"] > 100_000 and cloud["precision"] > 0.9):
+        fail(f"final round: the cloud misses the bar: {cloud}")
+    for rec in res["sweeps"]:
+        if not rec["peak_allocated_mib"] or \
+                rec["peak_allocated_mib"] >= PEAK_LIMIT_MIB:
+            fail(f"final round: a sweep's peak is not under "
+                 f"{PEAK_LIMIT_MIB} MiB: {rec}")
+    for name, c in n.items():
+        if c <= 0:
+            fail(f"final round did not launch {name}")
+    if res["launches_fusion"]["gather2d_hwc"] != \
+            3 * FINAL_VIEWS * (FINAL_VIEWS - 1):
+        fail(f"fusion launched {res['launches_fusion']}")
+
+    # Fusion's gather2d_hwc at the full frame: each shape's kernel, library
+    # call and plain version in turns, L2-cold, beside the bound.
+    scratch = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
+                          device=device)
+
+    def flush():
+        scratch.fill_(1.0)
+        scratch.sum()
+    recs = []
+    for sig, host in chk.kept["gather2d_hwc"].items():
+        args = tuple(a.to(device) for a in host)
+        t = time_turns({"kernel": lambda: modules["gather2d_hwc"]
+                        .gather2d_hwc(*args),
+                        "library": library_call("gather2d_hwc", args),
+                        "plain": lambda: plain["gather2d_hwc"](*args)},
+                       flush=flush)
+        b_ms, b_by = bound("gather2d_hwc", args)
+        recs.append({"shape": str(sig), "launches":
+                     chk.kept_launches["gather2d_hwc"][sig],
+                     "cold_ms": t["kernel"], "library_cold_ms": t["library"],
+                     "plain_cold_ms": t["plain"], "bound_ms": b_ms,
+                     "bound_by": b_by})
+        print(f"gather2d_hwc in fusion at {sc.width}x{sc.height}: {sig} "
+              f"x{recs[-1]['launches']}: cold ms kernel {t['kernel']:.4f}, "
+              f"library {t['library']:.4f}, plain {t['plain']:.4f}; bound "
+              f"{b_ms:.4f} ms ({b_by})", flush=True)
+        del args
+    del scratch, chk
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return {"launches": n, "fusion": res["launches_fusion"],
+            "fusion_hwc": recs, "summary": res}
 
 
 @contextlib.contextmanager
@@ -2233,6 +2405,18 @@ def main() -> None:
                          plain, exact)
     print(f"phase 12: {sum(v['seconds'] for v in full['summary'].values()):.1f}"
           f" s; script time so far {time.time() - t_start:.1f} s")
+    # Phase 14 on 12c's scene, which goes with it.
+    t0 = time.time()
+    phase(f"14. the final round through dpe_mvs: "
+          f"tools/torch_final_round.py at {full['scene'].width}x"
+          f"{full['scene'].height}x{FINAL_VIEWS}, resumed after iteration "
+          f"{FINAL_RESUME}")
+    final = final_round_phase(full.pop("scene"), out_dir / "final_round",
+                              launches, reset, modules, plain, exact, device)
+    print(json.dumps({"final_round": {**final["summary"],
+                                      "fusion_hwc": final["fusion_hwc"]}}))
+    print(f"phase 14: {time.time() - t0:.1f} s; script time so far "
+          f"{time.time() - t_start:.1f} s")
 
     # Phase 10: the exact engine on the same scene, in memory.
     rect_s = {k: statistics.median(v) for k, v in sweep_s.items()}
@@ -2296,11 +2480,15 @@ def main() -> None:
             "tile sweep": par["tile sweep"][name],
             **{f"fullres {path}": n[name]
                for path, n in full["launches"].items()},
+            "final round": final["launches"][name],
+            "final round fusion": final["fusion"][name],
             **{path: n[name] for path, n in env["launches"].items()}}
         if name in exact_recs:
             rec["exact"] = exact_recs[name]
         if name == "gather2d":
             rec["row4_real_paths"] = full["row4"]
+        if name == "gather2d_hwc":
+            rec["final_round_fusion"] = final["fusion_hwc"]
     print(f"script time {time.time() - t_start:.1f} s")
 
     shutil.rmtree(out_dir, ignore_errors=True)

@@ -484,7 +484,9 @@ def build_weak_sites(data: SweepData, sup, state: PMState, bundle,
     q_x = a_x.reshape(8 * H, W)
     g = sampling.gather_map(packed, q_y, q_x).reshape(8, H, W, 6)
     anchor_plane = g[..., :4].contiguous().view(torch.float32)
-    anchor_sel = g[..., 4]
+    # A copy: a view would keep the whole gather (six words an anchor)
+    # alive with the sites.
+    anchor_sel = g[..., 4].contiguous()
     anchor_strong = g[..., 5] == STRONG
 
     xr_l, yr_l = [], []
@@ -619,42 +621,8 @@ def propagate_weak_rect(key, data: SweepData, sup, state: PMState,
     ``key.fold_in(b)`` (the last band's rows start at H - hb and only its
     fresh tail is kept, as the JAX package's clamped slices do)."""
     H, W = data.ref_image.shape
-    sites = build_weak_sites(data, sup, state, bundle, color)
-    plane_now = state.plane
-    selected_now = state.selected
-
-    nb = _weak_band_count(H, W)
-    if nb == 1:
-        if sites.ap is None:
-            ap_f, ad0_f = _gather_band_profiles(data, bundle, sites.a_x,
-                                                sites.a_y)
-            sites = sites._replace(ap=ap_f, a_d0=ad0_f)
-        plane, selected, view_weight, weight_norm = _weak_body(
-            key, data, sites, plane_now, selected_now, sup.fit_plane,
-            params, it)
-    else:
-        hb = -(-H // nb)
-        nb = -(-H // hb)
-        BRANCHES["weak bands"] += nb
-        outs = []
-        for b in range(nb):
-            r0 = min(b * hb, H - hb)
-            s_b = _slice_sites(sites, r0, hb)
-            if s_b.ap is None:
-                ap_b, ad0_b = _gather_band_profiles(data, bundle, s_b.a_x,
-                                                    s_b.a_y)
-                s_b = s_b._replace(ap=ap_b, a_d0=ad0_b)
-            o = _weak_body(key.fold_in(b), data, s_b,
-                           plane_now.narrow(0, r0, hb),
-                           selected_now.narrow(0, r0, hb),
-                           sup.fit_plane.narrow(0, r0, hb), params, it)
-            keep = hb if b < nb - 1 else H - b * hb         # fresh rows
-            outs.append((o[0][hb - keep:], o[1][hb - keep:],
-                         o[2][:, hb - keep:], o[3][hb - keep:]))
-        plane = torch.cat([o[0] for o in outs])
-        selected = torch.cat([o[1] for o in outs])
-        view_weight = torch.cat([o[2] for o in outs], dim=1)
-        weight_norm = torch.cat([o[3] for o in outs])
+    plane, selected, view_weight, weight_norm = _weak_proposal(
+        key, data, sup, state, params, it, color, bundle)
 
     wsum = weight_norm.clamp(min=1e-30)
     # Re-express the stored cost with the standard strong NCC of the field
@@ -675,6 +643,50 @@ def propagate_weak_rect(key, data: SweepData, sup, state: PMState,
             checker.compact(selected, color),
             checker.compact(view_weight.permute(1, 2, 0), color)
             .permute(2, 0, 1))
+
+
+def _weak_proposal(key, data: SweepData, sup, state: PMState,
+                   params: PatchMatchParams, it, color,
+                   bundle: WeakRectBundle):
+    """:func:`propagate_weak_rect`'s proposal body, whole or per row band:
+    (plane, selected, view_weight, weight_norm). Its sites (the anchors'
+    gathered state, several full-frame maps) end when it returns, before
+    the caller's full-frame cost evaluation."""
+    H, W = data.ref_image.shape
+    sites = build_weak_sites(data, sup, state, bundle, color)
+    plane_now = state.plane
+    selected_now = state.selected
+
+    nb = _weak_band_count(H, W)
+    if nb == 1:
+        if sites.ap is None:
+            ap_f, ad0_f = _gather_band_profiles(data, bundle, sites.a_x,
+                                                sites.a_y)
+            sites = sites._replace(ap=ap_f, a_d0=ad0_f)
+        return _weak_body(key, data, sites, plane_now, selected_now,
+                          sup.fit_plane, params, it)
+    hb = -(-H // nb)
+    nb = -(-H // hb)
+    BRANCHES["weak bands"] += nb
+    outs = []
+    for b in range(nb):
+        r0 = min(b * hb, H - hb)
+        s_b = _slice_sites(sites, r0, hb)
+        if s_b.ap is None:
+            ap_b, ad0_b = _gather_band_profiles(data, bundle, s_b.a_x,
+                                                s_b.a_y)
+            s_b = s_b._replace(ap=ap_b, a_d0=ad0_b)
+        o = _weak_body(key.fold_in(b), data, s_b,
+                       plane_now.narrow(0, r0, hb),
+                       selected_now.narrow(0, r0, hb),
+                       sup.fit_plane.narrow(0, r0, hb), params, it)
+        keep = hb if b < nb - 1 else H - b * hb             # fresh rows
+        outs.append((o[0][hb - keep:], o[1][hb - keep:],
+                     o[2][:, hb - keep:], o[3][hb - keep:]))
+    return (torch.cat([o[0] for o in outs]),
+            torch.cat([o[1] for o in outs]),
+            torch.cat([o[2] for o in outs], dim=1),
+            torch.cat([o[3] for o in outs]))
 
 
 def _weak_body(key, data: SweepData, sites: WeakSites, plane_now,

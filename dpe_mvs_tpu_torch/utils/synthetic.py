@@ -12,7 +12,9 @@ JPEG decodes to).
 """
 from __future__ import annotations
 
+import concurrent.futures as cf
 import dataclasses
+import os
 from pathlib import Path
 from typing import List, Optional
 
@@ -145,9 +147,8 @@ def make_plane_scene(*, width: int = 160, height: int = 120,
     c2 = float(n1 @ np.array([0, 0, depth0 * 0.8]))
 
     radius = 0.25
-    images, cameras, gt_depths, gt_normals = [], [], [], []
-    weak_region_v0 = None
-    for v in range(num_views):
+
+    def render(v):
         eye_w, R, t, rays_w = _ring_camera(K, width, height, v, num_views,
                                            radius, depth0)
 
@@ -170,25 +171,30 @@ def make_plane_scene(*, width: int = 160, height: int = 120,
         u = np.mod(Xw[..., 0] * tex_scale, tex.shape[1] - 1)
         w_ = np.mod(Xw[..., 1] * tex_scale, tex.shape[0] - 1)
         img = _bilinear(tex, u, w_)
+        band = None
         if weak_patch:
             wy0, wy1 = int(0.35 * height), int(0.65 * height)
             wx0, wx1 = int(0.2 * width), int(0.6 * width)
             band = np.zeros((height, width), bool)
             band[wy0:wy1, wx0:wx1] = True
             img = np.where(band, float(img.mean()), img)
-            if v == 0:
-                weak_region_v0 = band
-        images.append(np.clip(img, 0, 255).astype(np.uint8)
-                      .astype(np.float32))
         dmin = float(depth.min() * 0.9)
         dmax = float(depth.max() * 1.1)
-        cameras.append(CameraData(K=K.copy(), R=R, t=t, depth_min=dmin,
-                                  depth_max=dmax, width=width, height=height))
-        gt_depths.append(depth.astype(np.float32))
-        gt_normals.append(normal.astype(np.float32))
+        return (np.clip(img, 0, 255).astype(np.uint8).astype(np.float32),
+                CameraData(K=K.copy(), R=R, t=t, depth_min=dmin,
+                           depth_max=dmax, width=width, height=height),
+                depth.astype(np.float32), normal.astype(np.float32), band)
+
+    # The views share nothing but the texture: render them in threads
+    # (numpy releases the interpreter lock in the large array operations).
+    with cf.ThreadPoolExecutor(max(1, min(num_views,
+                                          os.cpu_count() or 1))) as pool:
+        views = list(pool.map(render, range(num_views)))
+    images, cameras, gt_depths, gt_normals, bands = (list(x)
+                                                     for x in zip(*views))
     return PlaneScene(images=images, cameras=cameras, gt_depths=gt_depths,
                       gt_normals=gt_normals, width=width, height=height,
-                      weak_region=weak_region_v0)
+                      weak_region=bands[0])
 
 
 def make_rich_scene(*, width: int = 640, height: int = 480,
@@ -312,19 +318,22 @@ def write_scene_folder(scene: PlaneScene, folder,
     return folder
 
 
-def write_coarse_priors(scene: PlaneScene, ref: int, result_folder) -> Path:
-    """Write view ``ref``'s ground truth at half the frame into
-    ``result_folder`` as the previous round's writeback, which a later
-    round's REFINE_INIT pass A reads through ``io.scene.add_pass_inputs``
+def write_coarse_priors(scene: PlaneScene, ref: int, result_folder,
+                        step: int = 2) -> Path:
+    """Write view ``ref``'s ground truth at 1 / ``step`` of the frame (half
+    by default) into ``result_folder`` as the previous sweep's writeback,
+    which a later pass reads through ``io.scene.add_pass_inputs``
     (``rescale_nearest`` brings it to the frame): the depth and normal of
-    every other pixel, every source view selected, every pixel STRONG."""
+    every ``step``-th pixel, every source view selected, every pixel
+    STRONG."""
     rf = Path(result_folder)
     rf.mkdir(parents=True, exist_ok=True)
-    depth = scene.gt_depths[ref][::2, ::2]
+    depth = scene.gt_depths[ref][::step, ::step]
     n_src = len(scene.images) - 1
     formats.write_dmb(rf / "depths.dmb", depth.astype(np.float32))
     formats.write_dmb(rf / "normals.dmb",
-                      scene.gt_normals[ref][::2, ::2].astype(np.float32))
+                      scene.gt_normals[ref][::step, ::step].astype(
+                          np.float32))
     formats.write_dmb(rf / "selected_views.bin",
                       np.full(depth.shape, (1 << n_src) - 1, np.int32))
     formats.write_dmb(rf / "weak.bin", np.full(

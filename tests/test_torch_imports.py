@@ -2,7 +2,9 @@
 ``dpe_mvs_tpu_torch`` (among them ``api``, ``cli``, ``pipeline.fusion``,
 ``utils.viz``, ``io.colmap``, ``parallel.mesh``, ``parallel.tiles`` and
 ``pipeline.parallel_schedule``), ``chip_smoke``, ``tools/torch_eval``,
-``tools/torch_probe`` and ``tools/torch_weak_compare`` loads neither ``jax``, nor any module of the JAX package ``dpe_mvs_tpu``,
+``tools/torch_probe``, ``tools/torch_weak_compare`` and
+``tools/torch_final_round`` loads neither ``jax``, nor any module of the JAX
+package ``dpe_mvs_tpu``,
 nor ``cv2`` (the machine with the card has none of them), and neither does
 reading and writing PNG images through ``io/imread``; Pillow (``PIL``) is
 not loaded either, as only a JPEG needs it. Checked in a fresh interpreter,
@@ -26,6 +28,7 @@ import chip_smoke
 import tools.torch_eval
 import tools.torch_probe
 import tools.torch_weak_compare
+import tools.torch_final_round
 from dpe_mvs_tpu_torch.io import imread
 path = Path(tempfile.mkdtemp()) / '00000000.jpg'
 img = np.arange(35, dtype=np.uint8).reshape(5, 7)
@@ -62,7 +65,8 @@ def test_port_sources_never_import_cv2():
     for path in [*sorted((ROOT / "dpe_mvs_tpu_torch").rglob("*.py")),
                  ROOT / "chip_smoke.py", ROOT / "tools" / "torch_eval.py",
                  ROOT / "tools" / "torch_probe.py",
-                 ROOT / "tools" / "torch_weak_compare.py"]:
+                 ROOT / "tools" / "torch_weak_compare.py",
+                 ROOT / "tools" / "torch_final_round.py"]:
         for line in path.read_text().splitlines():
             words = line.split()
             assert not (words[:2] == ["import", "cv2"]

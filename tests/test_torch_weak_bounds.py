@@ -22,6 +22,19 @@ without changing a number or drawing anything new:
     with stored and with streamed anchor profiles, equal bit for bit those
     built over ``_resident_spans``.
 
+Through the round loop every problem of a round sweeps in the round's
+common rect frame (7296x6456 at 6048x4032x6), and pass B then peaks in the
+weak stage. Two more holders are bounded there, again exactly:
+
+  * (d) ``weak_rect.propagate_weak_rect`` ends its sites before its
+    full-frame cost evaluation (the proposal body runs in
+    ``_weak_proposal``, whose locals die as it returns);
+  * (e) ``build_weak_sites`` copies ``anchor_sel`` out of the anchors'
+    six-word gather, which a view of it kept alive with the sites.
+  Both colours' outputs equal, bit for bit, those of the code before
+  (``_propagate_before``), whole and in row bands, with stored and
+  streamed anchor profiles.
+
 The scene: ``torch_parity.weak_scene`` (48x36, 2 source views), round 1's
 pass A and its pass B (the geometric term), after the support and init
 stages.
@@ -341,3 +354,123 @@ def test_bundle_ends_each_views_fields(case, monkeypatch, streamed):
     twr.build_weak_bundle(tdata, sup, st, params, statics)
     assert calls == [0, 0, 1, 1] == sorted(calls)
     assert any(n == "packed channels" for _, n, _ in refs) != streamed
+
+
+def _propagate_before(key, data, sup, state, params, it, color, rstat,
+                      bundle):
+    """``weak_rect.propagate_weak_rect`` as it was before its sites ended
+    early: the sites (and the last band's slice) alive through the final
+    full-frame cost evaluation, ``anchor_sel`` a view of the anchors'
+    six-word gather."""
+    H, W = data.ref_image.shape
+    sites = twr.build_weak_sites(data, sup, state, bundle, color)
+    plane_now = state.plane
+    selected_now = state.selected
+    nb = twr._weak_band_count(H, W)
+    if nb == 1:
+        if sites.ap is None:
+            ap_f, ad0_f = twr._gather_band_profiles(data, bundle, sites.a_x,
+                                                    sites.a_y)
+            sites = sites._replace(ap=ap_f, a_d0=ad0_f)
+        plane, selected, view_weight, weight_norm = twr._weak_body(
+            key, data, sites, plane_now, selected_now, sup.fit_plane,
+            params, it)
+    else:
+        hb = -(-H // nb)
+        nb = -(-H // hb)
+        outs = []
+        for b in range(nb):
+            r0 = min(b * hb, H - hb)
+            s_b = twr._slice_sites(sites, r0, hb)
+            if s_b.ap is None:
+                ap_b, ad0_b = twr._gather_band_profiles(data, bundle,
+                                                        s_b.a_x, s_b.a_y)
+                s_b = s_b._replace(ap=ap_b, a_d0=ad0_b)
+            o = twr._weak_body(key.fold_in(b), data, s_b,
+                               plane_now.narrow(0, r0, hb),
+                               selected_now.narrow(0, r0, hb),
+                               sup.fit_plane.narrow(0, r0, hb), params, it)
+            keep = hb if b < nb - 1 else H - b * hb
+            outs.append((o[0][hb - keep:], o[1][hb - keep:],
+                         o[2][:, hb - keep:], o[3][hb - keep:]))
+        plane = torch.cat([o[0] for o in outs])
+        selected = torch.cat([o[1] for o in outs])
+        view_weight = torch.cat([o[2] for o in outs], dim=1)
+        weight_norm = torch.cat([o[3] for o in outs])
+    wsum = weight_norm.clamp(min=1e-30)
+    cmask = tsweep.checkerboard_mask(H, W, color, data.device)
+    plane_full = torch.where(cmask[..., None], plane, state.plane)
+    final_vec = trc.rect_cost_vector_stacked(
+        trc.build_rect_stack(data.rect, rstat), plane_full, data.view_valid,
+        params, tpm.strong_offsets(params), geom=False)
+    final_cost = (view_weight * final_vec).sum(0) / wsum
+    final_cost = torch.where(weight_norm > 0, final_cost,
+                             torch.full_like(final_cost, trc.COST_MAX))
+    from dpe_mvs_tpu_torch.ops import checker
+    return (checker.compact(plane, color), checker.compact(final_cost, color),
+            checker.compact(selected, color),
+            checker.compact(view_weight.permute(1, 2, 0), color)
+            .permute(2, 0, 1))
+
+
+@pytest.mark.parametrize("bands", [1, 3], ids=["whole", "three_bands"])
+@pytest.mark.parametrize("streamed", [False, True],
+                         ids=["stored_profiles", "streamed_profiles"])
+def test_weak_sites_end_before_the_final_cost(case, monkeypatch, bands,
+                                              streamed):
+    """(d) ``propagate_weak_rect`` ends its sites (the anchors' gathered
+    state, several full-frame maps) before its full-frame cost evaluation,
+    the weak stage's largest: weak references to them are dead when the
+    evaluation starts. (e) ``build_weak_sites``' ``anchor_sel`` owns its
+    storage (a view kept the six-word gather alive with the sites) and
+    equals that gather's fifth word. Both colours' outputs equal, bit for
+    bit, those of the code before (``_propagate_before``), whole and in row
+    bands, with stored and streamed anchor profiles."""
+    from dpe_mvs_tpu_torch.ops import sampling
+    from dpe_mvs_tpu_torch.ops import weak as tweak
+    tdata, sup, st, params, statics = case
+    if streamed:
+        monkeypatch.setattr(twr, "AP_STORE_MAX_PX", 0)
+    monkeypatch.setattr(twr, "_weak_band_count", lambda H, W: bands)
+    bundle = twr.build_weak_bundle(tdata, sup, st, params, statics)
+    sup = sup._replace(**tweak.fit_plane_ransac(TorchKey(7), tdata, sup, st,
+                                                params))
+    assert (st.weak == twr.WEAK).any()
+    refs = []
+    build, cost = twr.build_weak_sites, trc.rect_cost_vector_stacked
+
+    def build_rec(*args):
+        sites = build(*args)
+        # The sites' own fields (the rest are the bundle's).
+        refs.extend((n, weakref.ref(getattr(sites, n))) for n in (
+            "cx", "cy", "xr", "yr", "a_x", "a_y", "anchor_valid",
+            "anchor_strong", "anchor_sel", "anchor_plane"))
+        return sites
+
+    def cost_rec(*args, **kw):
+        alive = [n for n, r in refs if r() is not None]
+        assert refs and not alive, f"the sites' {alive} are alive"
+        return cost(*args, **kw)
+    for color in (0, 1):
+        key = TorchKey(9).fold_in(color)
+        want = _propagate_before(key, tdata, sup, st, params, 0, color,
+                                 statics, bundle)
+        with monkeypatch.context() as m:
+            m.setattr(twr, "build_weak_sites", build_rec)
+            m.setattr(trc, "rect_cost_vector_stacked", cost_rec)
+            got = twr.propagate_weak_rect(key, tdata, sup, st, params, 0,
+                                          color, statics, bundle)
+        for a, b in zip(got, want):
+            assert torch.equal(_bits(a), _bits(b))
+        refs.clear()
+    sites = twr.build_weak_sites(tdata, sup, st, bundle, 0)
+    sel = sites.anchor_sel
+    assert sel.is_contiguous()
+    assert sel.untyped_storage().nbytes() == sel.numel() * sel.element_size()
+    H, W = st.weak.shape
+    packed = torch.cat([st.plane.contiguous().view(torch.int32),
+                        st.selected[..., None],
+                        st.weak.to(torch.int32)[..., None]], dim=-1)
+    g = sampling.gather_map(packed, sites.a_y.reshape(8 * H, W),
+                            sites.a_x.reshape(8 * H, W)).reshape(8, H, W, 6)
+    assert torch.equal(sel, g[..., 4])

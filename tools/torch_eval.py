@@ -71,10 +71,12 @@ def fscore(cloud: np.ndarray, gt_pts: np.ndarray, tau: float) -> dict:
         return {"precision": 0.0, "recall": 0.0, "fscore": 0.0,
                 "tau": tau, "cloud_points": 0}
     gt_tree = cKDTree(gt_pts)
-    d_prec, _ = gt_tree.query(cloud, k=1, distance_upper_bound=tau * 8)
+    d_prec, _ = gt_tree.query(cloud, k=1, distance_upper_bound=tau * 8,
+                              workers=-1)
     precision = float((d_prec <= tau).mean())
     cl_tree = cKDTree(cloud)
-    d_rec, _ = cl_tree.query(gt_pts, k=1, distance_upper_bound=tau * 8)
+    d_rec, _ = cl_tree.query(gt_pts, k=1, distance_upper_bound=tau * 8,
+                             workers=-1)
     recall = float((d_rec <= tau).mean())
     f = 2 * precision * recall / max(precision + recall, 1e-9)
     return {"precision": round(precision, 4), "recall": round(recall, 4),

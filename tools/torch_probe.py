@@ -5,8 +5,12 @@
         [--sweep-chunk-bytes B] [--anchor-band-bytes B] [--snapshot]
 
 The port's counterpart of ``tools/tpu_probe.py`` (which imports jax). It
-renders ``utils.synthetic.make_plane_scene(width, height, views, seed=3)`` in
-memory and runs problem 0 through ``pipeline.schedule.process_problem``.
+renders ``utils.synthetic.make_plane_scene(width, height, views, seed=3)``,
+writes it as a dense folder and runs problem 0 through
+``pipeline.schedule.process_problem`` in the rect frame the round loop
+sweeps every problem of the scene in (``schedule.round_rect_frame``, the
+largest frame any of its pairs needs: 7296x6456 for six views at
+6048x4032, where problem 0's own is 6528x6456).
 With ``--round 0`` (the default): a FIRST_INIT sweep (round-0 pass A), then
 with ``apd`` the modal sweep (``schedule_params(base, 1, 0 if geom else
 None)``) from that sweep's writeback, with the stand-in support maps of
@@ -150,7 +154,7 @@ def main(argv=None) -> int:
     from dpe_mvs_tpu_torch.pipeline import schedule as sch
     from dpe_mvs_tpu_torch.utils.profiling import BRANCHES
     from dpe_mvs_tpu_torch.utils.synthetic import make_plane_scene, \
-        support_maps, write_coarse_priors
+        support_maps, write_coarse_priors, write_scene_folder
 
     device = torch.device("cpu" if args.cpu else "cuda")
     cuda = device.type == "cuda"
@@ -189,12 +193,18 @@ def main(argv=None) -> int:
     sc = make_plane_scene(width=W, height=H, num_views=V, seed=3)
     print(f"scene {W}x{H}x{V} rendered in {time.time() - t0:.1f} s",
           flush=True)
-    out = Path(tempfile.mkdtemp(prefix="dpe_probe_"))
-    p0 = scene.Problem(index=0, ref_image_id=0, src_image_ids=sc.src_ids(0),
-                       dense_folder=out)
+    out = write_scene_folder(sc, tempfile.mkdtemp(prefix="dpe_probe_"))
+    problems = [scene.Problem(index=i, ref_image_id=i,
+                              src_image_ids=sc.src_ids(i), dense_folder=out)
+                for i in range(V)]
+    p0 = problems[0]
     base = PatchMatchParams()
     cfg = EngineConfig(seed=3)
     v_pad = V - 1
+    # The frame the round loop sweeps each problem of the scene in.
+    rect_frame = (sch.round_rect_frame(problems, 1, v_pad)
+                  if sch.use_rect_engine(cfg) and V > 1 else None)
+    print(f"rect frame {rect_frame}", flush=True)
 
     def sync():
         if cuda:
@@ -255,7 +265,8 @@ def main(argv=None) -> int:
         ts = time.time()
         try:
             sch.process_problem(p0, params, 1, 1, v_pad, cfg, device=device,
-                                inputs=inputs, support_maps=maps, timer=timer)
+                                inputs=inputs, support_maps=maps, timer=timer,
+                                rect_frame=rect_frame)
         except torch.OutOfMemoryError as e:
             print(f"{label}: out of memory: {e}".splitlines()[0], flush=True)
             rec = {"sweep": label, "oom": str(e).splitlines()[0],
@@ -346,6 +357,7 @@ def main(argv=None) -> int:
           f"{float(ok.mean()):.4f}", flush=True)
     print(json.dumps({"probe": {"width": W, "height": H, "views": V,
                                 "round": R, "apd": apd, "geom": geom,
+                                "rect_frame": rect_frame,
                                 "alloc_conf": os.environ.get(
                                     "PYTORCH_CUDA_ALLOC_CONF"),
                                 "sweep_chunk_bytes":
