@@ -1097,7 +1097,7 @@ def fullres_phase(out_dir: Path, cfg, launches, reset, modules, plain,
     from dpe_mvs_tpu_torch.io import formats, scene
     from dpe_mvs_tpu_torch.ops import anchors
     from dpe_mvs_tpu_torch.pipeline import schedule as sch
-    from dpe_mvs_tpu_torch.utils.profiling import BRANCHES
+    from dpe_mvs_tpu_torch.utils.profiling import BRANCHES, outermost
     from dpe_mvs_tpu_torch.utils.synthetic import make_plane_scene, \
         support_maps, write_coarse_priors, write_scene_folder
 
@@ -1134,7 +1134,8 @@ def fullres_phase(out_dir: Path, cfg, launches, reset, modules, plain,
         BRANCHES.clear()
         ts = time.time()
         sch.process_problem(p, params, 1, 1, v_pad, cfg, device=device,
-                            timer=timer, rect_frame=frame, **kw)
+                            timer=outermost(timer), rect_frame=frame,
+                            **kw)
         torch.cuda.synchronize()
         peak_mib = max(peak[0], chk.max_allocated()) / 2**20
         rec = {"problem": p.ref_image_id, "seconds": time.time() - ts,
@@ -1445,9 +1446,10 @@ def call_sites(module, names):
 
 
 def sweep_timer(spans):
-    """A ``process_problem`` timer summing synchronised seconds per span
+    """A ``process_problem`` timer summing synchronised seconds per stage
     into ``spans``."""
     import torch
+    from dpe_mvs_tpu_torch.utils.profiling import outermost
 
     @contextlib.contextmanager
     def timer(name):
@@ -1456,7 +1458,7 @@ def sweep_timer(spans):
         yield
         torch.cuda.synchronize()
         spans[name] = spans.get(name, 0.0) + time.time() - ts
-    return timer
+    return outermost(timer)
 
 
 def exact_phase(sc, out_dir: Path, cfg, v_pad: int, launches, reset,
@@ -1816,6 +1818,7 @@ def main() -> None:
     from dpe_mvs_tpu_torch.ops import gather2d as g2d
     from dpe_mvs_tpu_torch.ops import rowgather as rg
     from dpe_mvs_tpu_torch.pipeline import schedule as sch
+    from dpe_mvs_tpu_torch.utils.profiling import outermost
     from dpe_mvs_tpu_torch.utils.synthetic import make_plane_scene, \
         support_maps
     modules = {"row_gather": rg, "bilinear_x": rg,
@@ -2353,7 +2356,8 @@ def main() -> None:
     inp0, maps0 = pass_b_inputs(p0)
     sch._RECT_HOSTS.clear()
     sch.process_problem(p0, params_b, 1, 1, v_pad, cfg, device=device,
-                        inputs=inp0, support_maps=maps0, timer=timer)
+                        inputs=inp0, support_maps=maps0,
+                        timer=outermost(timer))
     print("pass-B stages (s, synchronised): " +
           ", ".join(f"{k} {v:.3f}" for k, v in spans.items()))
 

@@ -23,6 +23,7 @@ import torch
 
 from ..config import PatchMatchParams, PixelState
 from ..ops import weak as weak_ops
+from ..utils import profiling
 from . import patchmatch as pm
 from . import rectcost, strong_rect, sweep, weak_rect
 from .state import PMState, SweepData
@@ -82,8 +83,9 @@ def _strong_iter(data: SweepData, state: PMState, it, key_it,
 def _weak_iter(data: SweepData, sup, state: PMState, it, key_it,
                params: PatchMatchParams, rstat, bundle) -> PMState:
     """Fit-plane RANSAC + weak propagation for both colors."""
-    sup_it = sup._replace(**weak_ops.fit_plane_ransac(
-        key_it.fold_in(2), data, sup, state, params))
+    with profiling.span("weak.ransac"):
+        sup_it = sup._replace(**weak_ops.fit_plane_ransac(
+            key_it.fold_in(2), data, sup, state, params))
     for color in (0, 1):
         k = key_it.fold_in(3 + color)
         if rstat is None:
@@ -93,7 +95,9 @@ def _weak_iter(data: SweepData, sup, state: PMState, it, key_it,
             out = weak_rect.propagate_weak_rect(k, data, sup_it, state,
                                                 params, it, color, rstat,
                                                 bundle)
-        state = sweep.apply_compacted(state, state.weak == WEAK, color, *out)
+        with profiling.span("weak.apply"):
+            state = sweep.apply_compacted(state, state.weak == WEAK, color,
+                                          *out)
     return state
 
 
@@ -137,38 +141,39 @@ def run_sweep_staged(data: SweepData, state: PMState,
     engine (whose bilinear corner maps are built here once).
 
     ``timer``: optional callable ``timer(name)`` returning a context manager
-    around each stage (it is responsible for any device synchronisation)."""
-    if rstat is None:
-        data = pm.with_corners(data)
-    keys = state.key.split(32)
+    (it is responsible for any device synchronisation), attached for the
+    sweep (:func:`..utils.profiling.attach`): it times each stage and the
+    weak stage's steps."""
+    with profiling.attach(timer):
+        if rstat is None:
+            data = pm.with_corners(data)
+        keys = state.key.split(32)
 
-    def run(name, fn, *args):
-        if timer is None:
-            return fn(*args)
-        with timer(name):
-            return fn(*args)
+        def run(name, fn, *args):
+            with profiling.span(name):
+                return fn(*args)
 
-    sup = pm.EMPTY_SUPPORT
-    if params.use_APD or params.use_edge:
-        sup, state = run("support", _support_stage, data, state, keys[0],
-                         params)
-    state = run("init", _init_stage, data, state, params, rstat)
-    bundle = None
-    if params.use_APD and rstat is not None:
-        bundle = run("weakprep", _weakprep_stage, data, sup, state, params,
-                     rstat)
-    base_key = keys[1]
-    for it in range(params.max_iterations):
-        key_it = base_key.fold_in(it)
-        state = run("strong", _strong_iter, data, state, it, key_it, params,
-                    rstat, sup)
-        if params.use_APD:
-            state = run("weak", _weak_iter, data, sup, state, it, key_it,
-                        params, rstat, bundle)
-    # The support maps and the weak bundle serve only the iterations: free
-    # them for classify's and refine's sweeps.
-    del sup, bundle
-    state = run("finish", _finish_stage, data, state, params)
-    state = run("classify", _classify_stage, data, state, params, rstat)
-    state = run("refine", _refine_stage, data, state, params, rstat)
-    return state.replace(key=keys[-1])
+        sup = pm.EMPTY_SUPPORT
+        if params.use_APD or params.use_edge:
+            sup, state = run("support", _support_stage, data, state,
+                             keys[0], params)
+        state = run("init", _init_stage, data, state, params, rstat)
+        bundle = None
+        if params.use_APD and rstat is not None:
+            bundle = run("weakprep", _weakprep_stage, data, sup, state,
+                         params, rstat)
+        base_key = keys[1]
+        for it in range(params.max_iterations):
+            key_it = base_key.fold_in(it)
+            state = run("strong", _strong_iter, data, state, it, key_it,
+                        params, rstat, sup)
+            if params.use_APD:
+                state = run("weak", _weak_iter, data, sup, state, it,
+                            key_it, params, rstat, bundle)
+        # The support maps and the weak bundle serve only the iterations:
+        # free them for classify's and refine's sweeps.
+        del sup, bundle
+        state = run("finish", _finish_stage, data, state, params)
+        state = run("classify", _classify_stage, data, state, params, rstat)
+        state = run("refine", _refine_stage, data, state, params, rstat)
+        return state.replace(key=keys[-1])

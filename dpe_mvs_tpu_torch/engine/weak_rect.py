@@ -45,6 +45,7 @@ from ..geometry import cameras as geo
 from ..geometry import rectify
 from ..ops import checker, ncc, sampling
 from ..ops import gather2d as g2d
+from ..utils import profiling
 from ..utils.profiling import BRANCHES
 from . import patchmatch as pm
 from . import rectcost
@@ -624,25 +625,26 @@ def propagate_weak_rect(key, data: SweepData, sup, state: PMState,
     plane, selected, view_weight, weight_norm = _weak_proposal(
         key, data, sup, state, params, it, color, bundle)
 
-    wsum = weight_norm.clamp(min=1e-30)
-    # Re-express the stored cost with the standard strong NCC of the field
-    # the writeback would store, so weak and strong costs are comparable
-    # during propagation (DPE.cu:1845-1861).
-    cmask = sweep.checkerboard_mask(H, W, color, data.device)
-    plane_full = torch.where(cmask[..., None], plane, state.plane)
-    final_vec = rectcost.rect_cost_vector_stacked(
-        rectcost.build_rect_stack(data.rect, rstat), plane_full,
-        data.view_valid, params, pm.strong_offsets(params),
-        geom=False)                                          # (V, H, W)
-    final_cost = (view_weight * final_vec).sum(0) / wsum
-    final_cost = torch.where(weight_norm > 0, final_cost,
-                             torch.full_like(final_cost, COST_MAX))
+    with profiling.span("weak.final_cost"):
+        wsum = weight_norm.clamp(min=1e-30)
+        # Re-express the stored cost with the standard strong NCC of the
+        # field the writeback would store, so weak and strong costs are
+        # comparable during propagation (DPE.cu:1845-1861).
+        cmask = sweep.checkerboard_mask(H, W, color, data.device)
+        plane_full = torch.where(cmask[..., None], plane, state.plane)
+        final_vec = rectcost.rect_cost_vector_stacked(
+            rectcost.build_rect_stack(data.rect, rstat), plane_full,
+            data.view_valid, params, pm.strong_offsets(params),
+            geom=False)                                      # (V, H, W)
+        final_cost = (view_weight * final_vec).sum(0) / wsum
+        final_cost = torch.where(weight_norm > 0, final_cost,
+                                 torch.full_like(final_cost, COST_MAX))
 
-    return (checker.compact(plane, color),
-            checker.compact(final_cost, color),
-            checker.compact(selected, color),
-            checker.compact(view_weight.permute(1, 2, 0), color)
-            .permute(2, 0, 1))
+        return (checker.compact(plane, color),
+                checker.compact(final_cost, color),
+                checker.compact(selected, color),
+                checker.compact(view_weight.permute(1, 2, 0), color)
+                .permute(2, 0, 1))
 
 
 def _weak_proposal(key, data: SweepData, sup, state: PMState,
@@ -653,15 +655,17 @@ def _weak_proposal(key, data: SweepData, sup, state: PMState,
     gathered state, several full-frame maps) end when it returns, before
     the caller's full-frame cost evaluation."""
     H, W = data.ref_image.shape
-    sites = build_weak_sites(data, sup, state, bundle, color)
+    with profiling.span("weak.sites"):
+        sites = build_weak_sites(data, sup, state, bundle, color)
     plane_now = state.plane
     selected_now = state.selected
 
     nb = _weak_band_count(H, W)
     if nb == 1:
         if sites.ap is None:
-            ap_f, ad0_f = _gather_band_profiles(data, bundle, sites.a_x,
-                                                sites.a_y)
+            with profiling.span("weak.sites"):
+                ap_f, ad0_f = _gather_band_profiles(data, bundle, sites.a_x,
+                                                    sites.a_y)
             sites = sites._replace(ap=ap_f, a_d0=ad0_f)
         return _weak_body(key, data, sites, plane_now, selected_now,
                           sup.fit_plane, params, it)
@@ -671,11 +675,12 @@ def _weak_proposal(key, data: SweepData, sup, state: PMState,
     outs = []
     for b in range(nb):
         r0 = min(b * hb, H - hb)
-        s_b = _slice_sites(sites, r0, hb)
-        if s_b.ap is None:
-            ap_b, ad0_b = _gather_band_profiles(data, bundle, s_b.a_x,
-                                                s_b.a_y)
-            s_b = s_b._replace(ap=ap_b, a_d0=ad0_b)
+        with profiling.span("weak.sites"):
+            s_b = _slice_sites(sites, r0, hb)
+            if s_b.ap is None:
+                ap_b, ad0_b = _gather_band_profiles(data, bundle, s_b.a_x,
+                                                    s_b.a_y)
+                s_b = s_b._replace(ap=ap_b, a_d0=ad0_b)
         o = _weak_body(key.fold_in(b), data, s_b,
                        plane_now.narrow(0, r0, hb),
                        selected_now.narrow(0, r0, hb),
@@ -683,10 +688,11 @@ def _weak_proposal(key, data: SweepData, sup, state: PMState,
         keep = hb if b < nb - 1 else H - b * hb             # fresh rows
         outs.append((o[0][hb - keep:], o[1][hb - keep:],
                      o[2][:, hb - keep:], o[3][hb - keep:]))
-    return (torch.cat([o[0] for o in outs]),
-            torch.cat([o[1] for o in outs]),
-            torch.cat([o[2] for o in outs], dim=1),
-            torch.cat([o[3] for o in outs]))
+    with profiling.span("weak.final_cost"):
+        return (torch.cat([o[0] for o in outs]),
+                torch.cat([o[1] for o in outs]),
+                torch.cat([o[2] for o in outs], dim=1),
+                torch.cat([o[3] for o in outs]))
 
 
 def _weak_body(key, data: SweepData, sites: WeakSites, plane_now,
@@ -695,46 +701,51 @@ def _weak_body(key, data: SweepData, sites: WeakSites, plane_now,
     the weak sites; returns (plane, selected, view_weight, weight_norm)
     before the final cost (CheckerboardPropagationWeak, DPE.cu:1668-1843).
     The 8 anchor candidates are evaluated one after another."""
-    nview = data.num_src
-    dev = data.device
-    k_sel, k_ref = key.split(2)
-    geom = params.geom_consistency
-    px, py = sites.cx, sites.cy
-    zero = torch.zeros((), device=dev)
+    with profiling.span("weak.candidates"):
+        nview = data.num_src
+        dev = data.device
+        k_sel, k_ref = key.split(2)
+        geom = params.geom_consistency
+        px, py = sites.cx, sites.cy
+        zero = torch.zeros((), device=dev)
 
-    flags = sites.anchor_valid & sites.anchor_strong         # (8, H, W)
-    cand_planes = sites.anchor_plane                         # (8, H, W, 4)
-    cost_array = torch.stack([deformable_cost_rect(data, sites, cp, params)
-                              for cp in cand_planes])        # (8, V, H, W)
-    cost_array = torch.where(flags[:, None], cost_array, zero)
+        flags = sites.anchor_valid & sites.anchor_strong     # (8, H, W)
+        cand_planes = sites.anchor_plane                     # (8, H, W, 4)
+        cost_array = torch.stack([
+            deformable_cost_rect(data, sites, cp, params)
+            for cp in cand_planes])                          # (8, V, H, W)
+        cost_array = torch.where(flags[:, None], cost_array, zero)
 
-    # Priors from all valid anchors (DPE.cu:1717-1730).
-    sh = torch.arange(nview, dtype=torch.int32, device=dev)[None, :, None,
-                                                              None]
-    bits = ((sites.anchor_sel[:, None] >> sh) & 1) == 1
-    prior = torch.where(sites.anchor_valid[:, None],
-                        torch.where(bits, torch.full((), 0.9, device=dev),
-                                    torch.full((), 0.1, device=dev)),
-                        zero).sum(0)
+        # Priors from all valid anchors (DPE.cu:1717-1730).
+        sh = torch.arange(nview, dtype=torch.int32,
+                          device=dev)[None, :, None, None]
+        bits = ((sites.anchor_sel[:, None] >> sh) & 1) == 1
+        prior = torch.where(sites.anchor_valid[:, None],
+                            torch.where(bits, torch.full((), 0.9, device=dev),
+                                        torch.full((), 0.1, device=dev)),
+                            zero).sum(0)
 
-    view_weight, temp_selected, weight_norm = pm.view_selection(
-        k_sel, cost_array, prior, data.view_valid, it)
-    wsum = weight_norm.clamp(min=1e-30)
+        view_weight, temp_selected, weight_norm = pm.view_selection(
+            k_sel, cost_array, prior, data.view_valid, it)
+        wsum = weight_norm.clamp(min=1e-30)
 
-    if geom:
-        # Geom is excluded from view selection and added to the final
-        # weighted costs (DPE.cu:1786-1798), one candidate at a time.
-        gmax = torch.full((), GEOM_COST_MAX, device=dev)
-        final_costs = torch.stack([
-            (view_weight * (cost_array[k] + params.geom_factor * torch.where(
-                flags[k][None], geom_term_rect(data, sites, cand_planes[k]),
-                gmax))).sum(0) / wsum for k in range(cand_planes.shape[0])])
-    else:
-        final_costs = (view_weight[None] * cost_array).sum(1) / wsum[None]
-    min_idx = torch.argmin(final_costs, dim=0)
-    min_flag = strong_rect._select_k(flags, min_idx)
-    min_cost = strong_rect._select_k(final_costs, min_idx)
-    min_plane = strong_rect._select_k(cand_planes, min_idx)
+        if geom:
+            # Geom is excluded from view selection and added to the final
+            # weighted costs (DPE.cu:1786-1798), one candidate at a time.
+            gmax = torch.full((), GEOM_COST_MAX, device=dev)
+            final_costs = torch.stack([
+                (view_weight * (cost_array[k] + params.geom_factor
+                                * torch.where(flags[k][None],
+                                              geom_term_rect(data, sites,
+                                                             cand_planes[k]),
+                                              gmax))).sum(0) / wsum
+                for k in range(cand_planes.shape[0])])
+        else:
+            final_costs = (view_weight[None] * cost_array).sum(1) / wsum[None]
+        min_idx = torch.argmin(final_costs, dim=0)
+        min_flag = strong_rect._select_k(flags, min_idx)
+        min_cost = strong_rect._select_k(final_costs, min_idx)
+        min_plane = strong_rect._select_k(cand_planes, min_idx)
 
     def eval_weighted(cand):
         c = deformable_cost_rect(data, sites, cand, params)
@@ -742,46 +753,48 @@ def _weak_body(key, data: SweepData, sites: WeakSites, plane_now,
             c = c + params.geom_factor * geom_term_rect(data, sites, cand)
         return (view_weight * c).sum(0) / wsum
 
-    cost_now = eval_weighted(plane_now)
-    cost_now = torch.where(weight_norm > 0, cost_now,
-                           torch.full_like(cost_now, COST_MAX))
-    stored_cost = cost_now
+    with profiling.span("weak.refine"):
+        cost_now = eval_weighted(plane_now)
+        cost_now = torch.where(weight_norm > 0, cost_now,
+                               torch.full_like(cost_now, COST_MAX))
+        stored_cost = cost_now
 
-    depth_now = geo.depth_from_plane(data.ref_cam, plane_now, px, py)
-    depth_before = geo.depth_from_plane(data.ref_cam, min_plane, px, py)
-    accept = min_flag & (depth_before >= data.depth_min) & \
-        (depth_before <= data.depth_max) & (min_cost < cost_now)
+        depth_now = geo.depth_from_plane(data.ref_cam, plane_now, px, py)
+        depth_before = geo.depth_from_plane(data.ref_cam, min_plane, px, py)
+        accept = min_flag & (depth_before >= data.depth_min) & \
+            (depth_before <= data.depth_max) & (min_cost < cost_now)
 
-    plane = torch.where(accept[..., None], min_plane, plane_now)
-    depth = torch.where(accept, depth_before, depth_now)
-    cost = torch.where(accept, min_cost, cost_now)
-    selected = torch.where(accept, temp_selected, selected_now)
+        plane = torch.where(accept[..., None], min_plane, plane_now)
+        depth = torch.where(accept, depth_before, depth_now)
+        cost = torch.where(accept, min_cost, cost_now)
+        selected = torch.where(accept, temp_selected, selected_now)
 
-    # Refinement (PlaneHypothesisRefinementWeak, DPE.cu:1120-1212): the
-    # RANSAC fit plane first, then the 5 perturbation combos.
-    fit = fit_plane
-    fit_nonzero = (fit[..., :3] != 0.0).any(-1)
-    c_fit = eval_weighted(fit)
-    d_fit = geo.depth_from_plane(data.ref_cam, fit, px, py)
-    ok = fit_nonzero & (d_fit >= data.depth_min) & \
-        (d_fit <= data.depth_max) & (c_fit < cost) & (weight_norm > 0)
-    plane = torch.where(ok[..., None], fit, plane)
-    depth = torch.where(ok, d_fit, depth)
-    cost = torch.where(ok, c_fit, cost)
+        # Refinement (PlaneHypothesisRefinementWeak, DPE.cu:1120-1212): the
+        # RANSAC fit plane first, then the 5 perturbation combos.
+        fit = fit_plane
+        fit_nonzero = (fit[..., :3] != 0.0).any(-1)
+        c_fit = eval_weighted(fit)
+        d_fit = geo.depth_from_plane(data.ref_cam, fit, px, py)
+        ok = fit_nonzero & (d_fit >= data.depth_min) & \
+            (d_fit <= data.depth_max) & (c_fit < cost) & (weight_norm > 0)
+        plane = torch.where(ok[..., None], fit, plane)
+        depth = torch.where(ok, d_fit, depth)
+        cost = torch.where(ok, c_fit, cost)
 
-    depths_c, normals_c = pm.refine_combos(k_ref, data, plane, depth, px, py)
-    for d_i, n_i in zip(depths_c, normals_c):
-        cand = geo.plane_from_depth_normal(data.ref_cam, px, py, d_i, n_i)
-        c = eval_weighted(cand)
-        d_chk = geo.depth_from_plane(data.ref_cam, cand, px, py)
-        ok = (d_chk >= data.depth_min) & (d_chk <= data.depth_max) & \
-            (c < cost) & (weight_norm > 0)
-        plane = torch.where(ok[..., None], cand, plane)
-        depth = torch.where(ok, d_chk, depth)
-        cost = torch.where(ok, c, cost)
+        depths_c, normals_c = pm.refine_combos(k_ref, data, plane, depth,
+                                               px, py)
+        for d_i, n_i in zip(depths_c, normals_c):
+            cand = geo.plane_from_depth_normal(data.ref_cam, px, py, d_i, n_i)
+            c = eval_weighted(cand)
+            d_chk = geo.depth_from_plane(data.ref_cam, cand, px, py)
+            ok = (d_chk >= data.depth_min) & (d_chk <= data.depth_max) & \
+                (c < cost) & (weight_norm > 0)
+            plane = torch.where(ok[..., None], cand, plane)
+            depth = torch.where(ok, d_chk, depth)
+            cost = torch.where(ok, c, cost)
 
-    if params.state == RunState.REFINE_INIT:
-        accept_final = cost < stored_cost - 0.1
-        plane = torch.where(accept_final[..., None], plane, plane_now)
+        if params.state == RunState.REFINE_INIT:
+            accept_final = cost < stored_cost - 0.1
+            plane = torch.where(accept_final[..., None], plane, plane_now)
 
     return plane, selected, view_weight, weight_norm

@@ -24,6 +24,7 @@ divide the mesh), so no real problem's numbers depend on the rank count.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import struct
 import time
@@ -86,8 +87,7 @@ class ParallelRunner:
         self.problems = problems
         self.v_pad = v_pad
         self.cfg = cfg
-        self.span = timer or functools.partial(GLOBAL_TIMER.span,
-                                               device=group.device)
+        self.span = timer or (lambda name: contextlib.nullcontext())
         n = len(problems)
         self.b_loc = mesh_mod.block_size(n, group)
         self.local = list(mesh_mod.local_block(n, group))
@@ -276,14 +276,18 @@ def run_pipeline_parallel(
     checkpointed to the ``.dmb`` files plus ``DPE/progress.json``
     (iteration ``4 * (round + 1) - 1``), written by rank 0 after a barrier,
     and completed rounds are skipped by reloading that state on every rank.
-    Stage spans (``load``, ``reinit``, ``exchange``, ``sweep``,
-    ``writeback``, ``fusion``) go to ``utils.profiling.GLOBAL_TIMER``."""
+    With ``verbose``, stage spans (``load``, ``reinit``, ``exchange``,
+    ``sweep``, ``writeback``, ``fusion``) go to
+    ``utils.profiling.GLOBAL_TIMER``, whose summary rank 0 prints at the
+    end; without it nothing is timed."""
     cfg = cfg or EngineConfig()
     if group is None:
         group = mesh_mod.make_group(device)
     dense_folder = Path(dense_folder)
     (dense_folder / "DPE").mkdir(parents=True, exist_ok=True)
-    span = functools.partial(GLOBAL_TIMER.span, device=group.device)
+    timer = (functools.partial(GLOBAL_TIMER.span, device=group.device)
+             if verbose else None)
+    span = timer or (lambda name: contextlib.nullcontext())
     problems = scene.generate_sample_list(dense_folder, viz)
     if not scene.check_images(problems):
         print("Images may error, check it!")
@@ -293,7 +297,7 @@ def run_pipeline_parallel(
     v_pad = max(max(min(len(p.src_image_ids), cfg.max_images - 1)
                     for p in problems), 1)
 
-    runner = ParallelRunner(group, problems, v_pad, cfg, span)
+    runner = ParallelRunner(group, problems, v_pad, cfg, timer)
     scale_sizes = [2 ** (round_num - 1 - i) for i in range(round_num)]
     for scale_size in scale_sizes:
         with span(f"edges, scale {seq.scale_index(scale_size)}"):

@@ -36,6 +36,7 @@ from ..engine.stages import run_sweep_staged
 from ..geometry import rectify
 from ..io import formats, imread, scene
 from ..utils import viz as viz_mod
+from ..utils import profiling
 from ..utils.profiling import GLOBAL_TIMER
 from . import fusion as fusion_mod
 from ..utils.rng import TorchKey
@@ -198,60 +199,61 @@ def process_problem(problem, params: PatchMatchParams, scale_size: int,
     engine (:func:`use_rect_engine`); the exact engine builds no rect host.
     ``rect_frame``: optional common (wp, hp) rect frame of the rect engine.
     ``timer``: optional callable ``timer(name)`` returning a context
-    manager, wrapped around the load, rectify, src-depth rectify (rect
-    engine), writeback and every sweep stage. With the problem's
+    manager, attached for the sweep (:func:`..utils.profiling.attach`): it
+    is wrapped around the load, rectify, src-depth rectify (rect engine),
+    writeback, every sweep stage and the weak stage's steps. With the problem's
     ``show_medium_result``, the written maps also go to ``depth_<it>.jpg``,
     ``normal_<it>.jpg`` and ``weak_<it>.jpg`` (PNG bytes)."""
     device = resolve_device(device)
-    span = timer if timer is not None else (lambda name: nullcontext())
-    t0 = time.time()
-    with span("load"):
-        if inputs is None:
-            inputs = scene.load_problem_inputs(problem, scale_size,
-                                               **pass_needs(params))
-        if not (params.use_APD or params.use_edge):
-            support_maps = (None,) * 3
-        elif support_maps is None:
-            support_maps = load_support_maps(problem, scale_size, max_scale,
-                                             params, inputs.width,
-                                             inputs.height)
-        data = state_mod.build_sweep_data(inputs, v_pad, *support_maps,
-                                          device=device)
-        key = TorchKey(cfg.seed + problem.ref_image_id * 1000
-                       + problem.iteration, device)
-        st = state_mod.init_pm_state(inputs, v_pad, key, params.use_APD,
-                                     device)
+    with profiling.attach(timer):
+        t0 = time.time()
+        with profiling.span("load"):
+            if inputs is None:
+                inputs = scene.load_problem_inputs(problem, scale_size,
+                                                   **pass_needs(params))
+            if not (params.use_APD or params.use_edge):
+                support_maps = (None,) * 3
+            elif support_maps is None:
+                support_maps = load_support_maps(problem, scale_size,
+                                                 max_scale, params,
+                                                 inputs.width, inputs.height)
+            data = state_mod.build_sweep_data(inputs, v_pad, *support_maps,
+                                              device=device)
+            key = TorchKey(cfg.seed + problem.ref_image_id * 1000
+                           + problem.iteration, device)
+            st = state_mod.init_pm_state(inputs, v_pad, key, params.use_APD,
+                                         device)
 
-    rstat = None
-    if use_rect_engine(cfg):
-        with span("rectify"):
-            rh = _rect_host(problem, inputs, v_pad, rect_frame, device)
-            views = rectcost.build_rect_views(rh, inputs.images, device)
-        if params.geom_consistency and inputs.src_depths is not None:
-            with span("src-depth rectify"):
-                views = rectcost.rectify_src_depths(
-                    views, rh, inputs.src_depths[1:], inputs.cameras)
-        data = data.replace(rect=views)
-        rstat = rh.statics
-    st = run_sweep_staged(data, st, params, rstat=rstat, timer=timer)
+        rstat = None
+        if use_rect_engine(cfg):
+            with profiling.span("rectify"):
+                rh = _rect_host(problem, inputs, v_pad, rect_frame, device)
+                views = rectcost.build_rect_views(rh, inputs.images, device)
+            if params.geom_consistency and inputs.src_depths is not None:
+                with profiling.span("src-depth rectify"):
+                    views = rectcost.rectify_src_depths(
+                        views, rh, inputs.src_depths[1:], inputs.cameras)
+            data = data.replace(rect=views)
+            rstat = rh.statics
+        st = run_sweep_staged(data, st, params, rstat=rstat)
 
-    with span("writeback"):
-        plane = st.plane.cpu().numpy()
-        depth = plane[..., 3].copy()
-        normal = plane[..., :3].copy()
-        weak = st.weak.cpu().numpy().copy()
-        out_of_range = (depth < inputs.depth_min) | \
-            (depth > inputs.depth_max) | ~np.isfinite(depth)
-        depth[out_of_range] = 0.0
-        weak[out_of_range] = int(PixelState.UNKNOWN)
+        with profiling.span("writeback"):
+            plane = st.plane.cpu().numpy()
+            depth = plane[..., 3].copy()
+            normal = plane[..., :3].copy()
+            weak = st.weak.cpu().numpy().copy()
+            out_of_range = (depth < inputs.depth_min) | \
+                (depth > inputs.depth_max) | ~np.isfinite(depth)
+            depth[out_of_range] = 0.0
+            weak[out_of_range] = int(PixelState.UNKNOWN)
 
-        rf = Path(problem.result_folder)
-        rf.mkdir(parents=True, exist_ok=True)
-        formats.write_dmb(rf / "depths.dmb", depth.astype(np.float32))
-        formats.write_dmb(rf / "normals.dmb", normal.astype(np.float32))
-        formats.write_dmb(rf / "weak.bin", weak.astype(np.uint8))
-        formats.write_dmb(rf / "selected_views.bin",
-                          st.selected.cpu().numpy().astype(np.int32))
+            rf = Path(problem.result_folder)
+            rf.mkdir(parents=True, exist_ok=True)
+            formats.write_dmb(rf / "depths.dmb", depth.astype(np.float32))
+            formats.write_dmb(rf / "normals.dmb", normal.astype(np.float32))
+            formats.write_dmb(rf / "weak.bin", weak.astype(np.uint8))
+            formats.write_dmb(rf / "selected_views.bin",
+                              st.selected.cpu().numpy().astype(np.int32))
     if problem.show_medium_result:
         it = problem.iteration
         viz_mod.save_depth_map(rf / f"depth_{it}.jpg", depth,
@@ -344,14 +346,17 @@ def run_pipeline(dense_folder, *, verbose: bool = True, fusion: bool = False,
     files). ``fusion=True`` fuses the final depth maps into
     ``DPE/DPE.ply`` (:func:`.fusion.run_fusion`, on ``device``);
     ``viz=True`` writes the debug images of every sweep and scale
-    (:mod:`..utils.viz`). Stage times go to ``utils.profiling.GLOBAL_TIMER``
-    (fusion as the span ``fusion``), spans on a card timed by CUDA events
-    (the host is never blocked for them)."""
+    (:mod:`..utils.viz`). With ``verbose``, stage times go to
+    ``utils.profiling.GLOBAL_TIMER`` (fusion as the span ``fusion``), spans
+    on a card timed by CUDA events (the host is never blocked for them),
+    and its summary is printed at the end; without it nothing is timed."""
     device = resolve_device(device)
     cfg = cfg or EngineConfig()
     dense_folder = Path(dense_folder)
     (dense_folder / "DPE").mkdir(parents=True, exist_ok=True)
-    span = functools.partial(GLOBAL_TIMER.span, device=device)
+    timer = (functools.partial(GLOBAL_TIMER.span, device=device) if verbose
+             else None)
+    span = timer or (lambda name: nullcontext())
 
     problems = scene.generate_sample_list(dense_folder, viz)
     if not scene.check_images(problems):
@@ -417,7 +422,7 @@ def run_pipeline(dense_folder, *, verbose: bool = True, fusion: bool = False,
                         process_problem(p, params, scale_size, max_scale,
                                         v_pad, cfg, device=device,
                                         verbose=verbose, inputs=inputs,
-                                        rect_frame=rect_frame, timer=span)
+                                        rect_frame=rect_frame, timer=timer)
                 _save_progress(dense_folder, iteration)
                 if verbose:
                     print(f"Iteration {iteration + 1} / {round_num * 4} done "

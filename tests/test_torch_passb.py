@@ -17,8 +17,14 @@ test_torch_sweep.py's), with edge and label maps from ``edges/dual_level``.
     CPU, each package with its own random stream: the port's median
     relative depth error within 0.003 of the JAX package's and no worse than
     the shared pass A's + 0.003 (the bar of test_weak_rect.py); the weak
-    stage changed some pixels.
+    stage changed some pixels;
+  * the port's sweep timed by a host ``StageTimer``: the weak stage's six
+    steps are spans nested in ``weak`` and take no more than it; untimed,
+    the same sweep counts no host synchronisation and writes the same maps
+    bit for bit.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -29,6 +35,7 @@ from dpe_mvs_tpu_torch.engine import stages as tstages
 from dpe_mvs_tpu_torch.engine import state as tst
 from dpe_mvs_tpu_torch.io import scene as tscene
 from dpe_mvs_tpu_torch.pipeline import schedule as tschedule
+from dpe_mvs_tpu_torch.utils import profiling
 
 import jax
 import jax.numpy as jnp
@@ -45,6 +52,9 @@ from dpe_mvs_tpu.pipeline import schedule as jschedule
 from dpe_mvs_tpu.utils.synthetic import make_plane_scene
 
 W, H, VIEWS, SEED = 48, 36, 3, 3
+WEAK_STEPS = ("weak.ransac", "weak.sites", "weak.candidates", "weak.refine",
+              "weak.final_cost", "weak.apply")
+MAP_FILES = ("depths.dmb", "normals.dmb", "weak.bin", "selected_views.bin")
 
 
 def _err(depth, gt):
@@ -178,6 +188,50 @@ def test_pass_b_sweep(scene, monkeypatch, tmp_path):
     assert ours[1] > 0.5 and ref[1] > 0.5
     assert ours[0] <= ref[0] + 0.003, (ours, ref)
     assert ours[0] <= s["err_a"][0] + 0.003, (ours, s["err_a"])
+
+
+def test_pass_b_sweep_spans(scene, tmp_path):
+    s = scene
+    # One iteration: every weak step runs, at a third of the sweep's cost.
+    params = dataclasses.replace(torch_parity.port_params(s["params"]),
+                                 max_iterations=1)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    timer = profiling.StageTimer()
+    folders = {}
+    try:
+        for timed in (True, False):
+            profiling.SYNCS.clear()
+            prob = tscene.Problem(index=0, ref_image_id=0,
+                                  src_image_ids=[1, 2],
+                                  dense_folder=tmp_path / str(timed),
+                                  iteration=1)
+            tschedule.process_problem(
+                prob, params, 1, 0,
+                s["v_pad"], torch_parity.port_engine_config(s["cfg"]),
+                device="cpu", inputs=s["inputs"], support_maps=s["maps"],
+                timer=timer if timed else None)
+            folders[timed] = prob.result_folder
+    finally:
+        torch.set_num_threads(threads)
+    assert not profiling.SYNCS
+    for f in MAP_FILES:
+        assert (folders[True] / f).read_bytes() == \
+            (folders[False] / f).read_bytes(), f
+
+    totals = timer.totals
+    assert timer.counts["weak"] == 1
+    assert set(WEAK_STEPS) <= set(totals)
+    for (name, t0, t1), parent in zip(timer.intervals, timer.parents):
+        if name in WEAK_STEPS:
+            assert parent == "weak", (name, parent)
+            assert any(p == "weak" and p0 <= t0 <= t1 <= p1
+                       for p, p0, p1 in timer.intervals), name
+        elif name == "weak":
+            assert parent is None
+    assert timer.counts["weak.ransac"] == 1
+    assert timer.counts["weak.apply"] == 2
+    assert sum(totals[n] for n in WEAK_STEPS) <= totals["weak"]
 
 
 def test_one_refine_iter_strong_iteration(scene):

@@ -149,7 +149,7 @@ def run(width: int = 6048, height: int = 4032, views: int = 6,
     from dpe_mvs_tpu_torch.io import scene as scene_mod
     from dpe_mvs_tpu_torch.ops import gather2d, rowgather
     from dpe_mvs_tpu_torch.pipeline import fusion, schedule
-    from dpe_mvs_tpu_torch.utils.profiling import GLOBAL_TIMER
+    from dpe_mvs_tpu_torch.utils.profiling import GLOBAL_TIMER, outermost
     from dpe_mvs_tpu_torch.utils.synthetic import make_plane_scene, \
         write_scene_folder
     from tools.torch_eval import depth_report, depth_scale, evaluate_scene
@@ -239,7 +239,7 @@ def run(width: int = 6048, height: int = 4032, views: int = 6,
         held = torch.cuda.memory_allocated(device) if on_card else None
         if on_card:
             torch.cuda.reset_peak_memory_stats(device)
-            kw["timer"] = timer
+            kw["timer"] = outermost(timer)
         ts = time.time()
         orig["process_problem"](p, params, *args, **kw)
         sync()

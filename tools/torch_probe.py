@@ -152,7 +152,7 @@ def main(argv=None) -> int:
     from dpe_mvs_tpu_torch.ops import gather2d as g2d
     from dpe_mvs_tpu_torch.ops import rowgather as rg
     from dpe_mvs_tpu_torch.pipeline import schedule as sch
-    from dpe_mvs_tpu_torch.utils.profiling import BRANCHES
+    from dpe_mvs_tpu_torch.utils.profiling import BRANCHES, outermost
     from dpe_mvs_tpu_torch.utils.synthetic import make_plane_scene, \
         support_maps, write_coarse_priors, write_scene_folder
 
@@ -265,7 +265,8 @@ def main(argv=None) -> int:
         ts = time.time()
         try:
             sch.process_problem(p0, params, 1, 1, v_pad, cfg, device=device,
-                                inputs=inputs, support_maps=maps, timer=timer,
+                                inputs=inputs, support_maps=maps,
+                                timer=outermost(timer),
                                 rect_frame=rect_frame)
         except torch.OutOfMemoryError as e:
             print(f"{label}: out of memory: {e}".splitlines()[0], flush=True)

@@ -7,13 +7,16 @@ Writes the synthetic plane scene (``make_plane_scene``, seed 7) to a dense
 folder and runs the PyTorch port's pipeline on it
 (``dpe_mvs_tpu_torch.pipeline.schedule.run_pipeline``, the path of
 ``dpe_mvs`` and the CLI) once per run, each run on a fresh copy of the
-folder, with ``schedule.GLOBAL_TIMER`` replaced by one of three timers:
+folder, in one of three modes:
 
-  none    spans that do nothing: the pipeline without instrumentation;
-  events  ``utils.profiling.StageTimer``, spans timed by CUDA events (what
-          ``run_pipeline`` uses);
-  sync    spans that synchronise the card when they start and before the
-          clock stops.
+  none    ``verbose=False``: nothing is timed, as in a user's quiet run;
+  events  ``verbose=True`` with ``schedule.GLOBAL_TIMER`` a fresh
+          ``utils.profiling.StageTimer``: spans timed by CUDA events and
+          host synchronisations counted (what ``verbose`` does);
+  sync    ``verbose=True`` with spans that synchronise the card when they
+          start and before the clock stops.
+
+The timed modes' printed output is captured and dropped.
 
 The modes run in turns, in order then reversed (none, events, sync, sync,
 events, none) for each of ``--pairs``, after one warm-up run at a quarter
@@ -26,6 +29,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import shutil
 import statistics
@@ -38,18 +42,6 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 MODES = ("none", "events", "sync")
-
-
-class NoTimer:
-    """Spans that do nothing."""
-
-    totals: dict = {}
-
-    def span(self, name, device=None):
-        return contextlib.nullcontext()
-
-    def summary(self) -> str:
-        return ""
 
 
 class SyncTimer:
@@ -73,27 +65,35 @@ class SyncTimer:
                 + time.perf_counter() - t0
             self.counts[name] = self.counts.get(name, 0) + 1
 
+    def summary(self) -> str:
+        return "\n".join(f"{k} {v:.2f}s x{self.counts[k]}"
+                         for k, v in self.totals.items())
+
 
 def run(folder: Path, mode: str, work: Path) -> tuple:
-    """One pipeline run on a fresh copy of ``folder`` with ``mode``'s timer:
+    """One pipeline run on a fresh copy of ``folder`` in ``mode``:
     (seconds, stage totals)."""
     import torch
     from dpe_mvs_tpu_torch.pipeline import schedule
     from dpe_mvs_tpu_torch.utils.profiling import StageTimer
-    timer = {"none": NoTimer, "events": StageTimer, "sync": SyncTimer}[mode]()
+    make = {"none": None, "events": StageTimer, "sync": SyncTimer}[mode]
+    timer = make() if make is not None else None
     copy = work / f"run_{mode}"
     shutil.rmtree(copy, ignore_errors=True)
     shutil.copytree(folder, copy)
-    schedule.GLOBAL_TIMER = timer
+    if timer is not None:
+        schedule.GLOBAL_TIMER = timer
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    rc = schedule.run_pipeline(copy, verbose=False, depth=True, normal=True,
-                               weak=True, edge=True, device="cuda")
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = schedule.run_pipeline(copy, verbose=timer is not None,
+                                   depth=True, normal=True, weak=True,
+                                   edge=True, device="cuda")
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     if rc != 0:
         sys.exit(f"run_pipeline returned {rc}")
-    totals = dict(timer.totals)
+    totals = dict(timer.totals) if timer is not None else {}
     shutil.rmtree(copy)
     return dt, totals
 
