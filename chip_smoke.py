@@ -10,13 +10,15 @@ REFINE_ITER, weak machinery, edges and geometric consistency) for all 6,
 reading each problem's priors and its sources' depths back from the pass-A
 writeback; then written to a dense folder and run through the whole
 pipeline by the CLI, as a user runs it; then frames of 1600x1200 and
-6048x4032 (phase 12) and the ETH3D final round through ``dpe_mvs`` on two
-of the 6048x4032 views (phase 14); last, the weak-path envelope of
+6048x4032 (phase 12), the ETH3D final round through ``dpe_mvs`` on two
+of the 6048x4032 views (phase 14) and the weak stage's cost kernel at the
+benchmark cell's frame (phase 15); last, the weak-path envelope of
 ``tools/torch_weak_compare.py`` (phase 13). Phases:
 
   1. the card's name and power limit (nvidia-smi);
   2. build the kernels from ``dpe_mvs_tpu_torch/csrc`` (one nvcc per source,
-     all at once);
+     all at once: the row kernels, the gathers and the weak stage's cost
+     kernel ``weakcost``);
   3. each kernel against its plain PyTorch version on the card, bit-exact,
      at ragged shapes and in every branch of the row kernels' launch plan
      (rows W in {1, 2, 3, 800, 1024, 70001}, L ragged and aligned, H = 70001,
@@ -38,7 +40,9 @@ of the 6048x4032 views (phase 14); last, the weak-path envelope of
   7. pass B, all problems (edge and label maps from the in-memory stand-in
      ``utils.synthetic.support_maps``), counters set to 0 just before and
      read just after; every kernel must have launched; the weak share
-     before pass B must be > 0; problem 0 must meet the same bar and be no
+     before pass B must be > 0; the weak stage's entry ``weak_cost`` is
+     checked bit for bit against its plain version at the first launch of
+     each shape (:class:`FirstLaunchCheck`); problem 0 must meet the same bar and be no
      worse than its pass-A error + 0.003. (Each sweep of phases 5-8 builds
      its rect host anew, as it did before the pipeline cached them per
      round);
@@ -183,9 +187,11 @@ of the 6048x4032 views (phase 14); last, the weak-path envelope of
      (``anchors.BAND_BYTES``) and classify's analysis, and chunks the
      disparity sweeps (``patchmatch.SWEEP_CHUNK_BYTES``); ``gather2d``
      reads a channel over 6 MiB (TPU kernel row 4's regime). Every kernel
-     entry is compared bit for bit with its plain version at the first
-     launch of each shape (:class:`FirstLaunchCheck`: no copies kept, unlike
-     :class:`Capture`; the comparisons kept out of the peaks), and row 4's
+     entry, ``weak_cost`` among them, is compared bit for bit with its plain
+     version at the first launch of each shape (:class:`FirstLaunchCheck`:
+     no copies kept, unlike :class:`Capture`; the comparisons kept out of
+     the peaks); 12c times ``weak_cost``'s first launch of each mode (the
+     final round's band of 42 x 6048 sites) as phase 15 does; and row 4's
      real shape is timed (kernel, library call, plain version in turns,
      L2-cold) beside its bound, its inputs copied to host memory at their
      launch so that pass B's peak is the sweep's own. Every sweep sweeps in
@@ -206,8 +212,9 @@ of the 6048x4032 views (phase 14); last, the weak-path envelope of
      iteration), the exports, fusion to ``DPE/DPE.ply`` and the cleanup,
      inside :class:`FirstLaunchCheck` (every entry bit-exact at the first
      launch of each shape, fusion's ``gather2d_hwc`` at 6048x4032 among
-     them). Counters set to 0 just before the run and read just after: all
-     five entries must have launched, fusion ``gather2d_hwc`` 3 times per
+     them, and ``weak_cost``). Counters set to 0 just before the run and read
+     just after: all six entries must have launched, fusion ``gather2d_hwc``
+     3 times per
      (reference, source) pair. Bars: every problem's median relative depth
      error < 0.02 and valid share > 0.5, more than 100 000 points with
      precision > 0.9 (``tools/torch_eval.fscore``, tau = 0.005 x the median
@@ -215,6 +222,19 @@ of the 6048x4032 views (phase 14); last, the weak-path envelope of
      ``gather2d_hwc`` shapes timed (kernel, library call, plain version in
      turns, L2-cold) beside their bounds. One JSON line (``final_round``:
      the tool's record and those timings);
+ 15. the weak stage's cost kernel at the benchmark cell's frame
+     (CELL_FRAME: eth3d-r1.passB's 1512x1008, 6 views, round 1):
+     ``tools/torch_probe.py``'s sweeps in-process (round 1's REFINE_INIT
+     pass A from the ground truth at half size, then its modal pass B with
+     the geometric term; 7 weak bands of 144 rows, streamed anchor
+     profiles) inside :class:`FirstLaunchCheck` on ``weak_cost``: every
+     shape's first launch bit-exact against the plain version, and each
+     mode's first launch (cost, term, cost + factor x term) timed: the
+     kernel (into a spare output) and the plain version in turns, each call
+     by its own event pair, median of REPS, warm and L2-cold, beside the
+     bound (``ops/weakcost.site_bytes`` a site over 3.35 TB/s). Bar: 15
+     launches a band body in pass A and 23 in pass B (42 band bodies a
+     sweep);
  13. the weak-path envelope (cell ``weak-envelope-800x600x6``):
      ``tools/torch_weak_compare.py`` on problem 0 of its own 800x600x6 scene
      (``make_plane_scene(seed=17, weak_patch=True)``, its images as the
@@ -223,7 +243,7 @@ of the 6048x4032 views (phase 14); last, the weak-path envelope of
      REFINE_INIT sweep on the rect engine, then the same on the exact
      engine, in one process, inside :class:`FirstLaunchCheck` (every entry
      bit-exact at the first launch of each shape); counters set to 0 before
-     each run and read after it: the rect run must launch all five entries,
+     each run and read after it: the rect run must launch all six entries,
      the exact run ``gather2d_hwc`` and ``gather2d_pick`` and no row
      kernel. Then the tool's ``compare`` of the two ``.npz`` files. Bars:
      both engines median relative depth error < 0.02 and valid share > 0.5
@@ -242,7 +262,9 @@ sweep", phase 12's as "fullres <frame> pass A" / "... pass B", phase
 compare rect" / "weak compare exact"; ``gather2d`` adds
 ``row4_real_paths``, row 4's real shapes timed in phase 12;
 ``gather2d_hwc`` adds ``final_round_fusion``, phase 14's fusion shapes;
-``exact``: phase 10c's timings); the last line is
+``exact``: phase 10c's timings; ``weakcost``: the cost mode's times at the
+cell's band, and ``bands``, every mode's at the cell's band (phase 15) and
+the final round's (12c)); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -296,9 +318,13 @@ FINAL_RESUME = 14
 ROW4_CHANNEL_BYTES = 6 * 2**20     # the JAX package's gather2d switches to
                                    # its HBM kernel (TPU row 4) above this
 F32_OPS_PER_S = 67e12              # float32 outside the tensor cores (same)
+# Phase 15: the benchmark cell eth3d-r1.passB's frame (width, height, views,
+# round).
+CELL_FRAME = (1512, 1008, 6, 1)
 SOURCES = {"row_gather": "dpe_mvs_tpu_torch/csrc/rowgather.cu",
            "bilinear_x": "dpe_mvs_tpu_torch/csrc/rowgather.cu",
-           **{n: "dpe_mvs_tpu_torch/csrc/gather2d.cu" for n in GATHERS}}
+           **{n: "dpe_mvs_tpu_torch/csrc/gather2d.cu" for n in GATHERS},
+           "weakcost": "dpe_mvs_tpu_torch/csrc/weakcost.cu"}
 _G2D_TPU = ("dpe_mvs_tpu/ops/gather2d.py:86 (_gather2d_vmem_kernel) and "
             "dpe_mvs_tpu/ops/gather2d.py:127 (_gather2d_kernel)")
 REPLACES = {"row_gather": "dpe_mvs_tpu/ops/rowgather.py:59",
@@ -308,7 +334,10 @@ REPLACES = {"row_gather": "dpe_mvs_tpu/ops/rowgather.py:59",
                             "dpe_mvs_tpu/ops/sampling.py:82 gather_map",
             "gather2d_pick": _G2D_TPU + " as reached by "
                              "dpe_mvs_tpu/ops/support.py:308 "
-                             "LineOfSight.crossing free_at"}
+                             "LineOfSight.crossing free_at",
+            "weakcost": "none: the elementwise chain XLA fuses for "
+                        "dpe_mvs_tpu/engine/weak_rect.py deformable_cost_rect"
+                        " and geom_term_rect"}
 LIBRARY = {"row_gather": "torch.gather, int64 index pre-clamped",
            "bilinear_x": "torch.nn.functional.grid_sample (bilinear, "
                          "border, align_corners) on a precomputed grid",
@@ -997,6 +1026,95 @@ def parallel_phase(sc, folder: Path, launches, reset, modules, seq: dict,
     return out
 
 
+def weak_cost_call(args, kwargs) -> dict:
+    """``engine.weak_rect.weak_cost``'s arguments by name, defaults
+    filled."""
+    def named(data, sites, plane, photo=True, geom=False, geom_factor=0.0,
+              out=None):
+        return dict(data=data, sites=sites, plane=plane, photo=photo,
+                    geom=geom, geom_factor=geom_factor, out=out)
+    return named(*args, **kwargs)
+
+
+def launch_signature(name, args, kwargs) -> tuple:
+    """A launch's shape signature: each tensor argument's shape, dtype and
+    strides; for ``weak_cost``, what it computes and the shapes, dtypes and
+    strides of the plane and of every site field the kernel reads."""
+    if name == "weak_cost":
+        from dpe_mvs_tpu_torch.engine import weak_rect
+        a = weak_cost_call(args, kwargs)
+        ts = [a["plane"], *weak_rect._kernel_operands(
+            a["sites"], a["photo"], a["geom"]).values()]
+        head = (("photo" if a["photo"] else "") + ("geom" if a["geom"]
+                                                    else ""),)
+    else:
+        ts, head = args, ()
+    return head + tuple((tuple(t.shape), str(t.dtype), tuple(t.stride()))
+                        for t in ts)
+
+
+def weak_cost_plain(data, sites, plane, photo=True, geom=False,
+                    geom_factor=0.0, out=None):
+    """``weak_cost``'s plain version with its signature (``out`` unused)."""
+    from dpe_mvs_tpu_torch.engine import weak_rect
+    return weak_rect.weak_cost_ref(data, sites, plane, photo, geom,
+                                   geom_factor)
+
+
+def weak_cost_timer(records: list, label: str):
+    """A :class:`FirstLaunchCheck` ``timed`` hook for ``weak_cost``: at the
+    first launch of each (mode, band shape) the kernel (into a spare output)
+    and the plain version in turns, each call by its own event pair, median
+    of REPS, warm and L2-cold (FLUSH_BYTES written and read before each
+    call), beside the bound: ``ops/weakcost.site_bytes`` a site over the
+    memory rate. Appends a record to ``records``; the launches it makes are
+    taken off ``weakcost.LAUNCHES`` again."""
+    import torch
+    from dpe_mvs_tpu_torch.ops import weakcost as wc
+    done = set()
+
+    def hook(fn, args, kwargs):
+        a = weak_cost_call(args, kwargs)
+        data, sites, plane = a["data"], a["sites"], a["plane"]
+        photo, geom, gf = a["photo"], a["geom"], a["geom_factor"]
+        (h, w), V = plane.shape[:2], sites.xr.shape[0]
+        mode = {(True, False): "cost", (False, True): "term",
+                (True, True): "cost+term"}[photo, geom]
+        if (mode, h, w) in done:
+            return
+        done.add((mode, h, w))
+        spare = torch.empty((V, h, w), dtype=torch.float32,
+                            device=plane.device)
+        scratch = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
+                              device=plane.device)
+
+        def flush():
+            scratch.fill_(1.0)
+            scratch.sum()
+        n0 = wc.LAUNCHES["weakcost"]
+        fns = {"kernel": lambda: fn(data, sites, plane, photo, geom, gf,
+                                    out=spare),
+               "plain": lambda: weak_cost_plain(data, sites, plane, photo,
+                                                geom, gf)}
+        warm = time_turns(fns)
+        cold = time_turns(fns, flush=flush)
+        wc.LAUNCHES["weakcost"] = n0
+        rec = {"frame": label, "mode": mode, "sites": [h, w], "views": V,
+               "ms": warm["kernel"], "cold_ms": cold["kernel"],
+               "plain_ms": warm["plain"], "plain_cold_ms": cold["plain"],
+               "bound_ms": h * w * wc.site_bytes(V, photo, geom)
+               / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+        records.append(rec)
+        print(f"weak_cost, {label}, {mode} at {V} x {h} x {w} sites: kernel "
+              f"{rec['cold_ms']:.4f} / {rec['ms']:.4f} ms (cold / warm), "
+              f"plain {rec['plain_cold_ms']:.3f} / {rec['plain_ms']:.3f} ms; "
+              f"bound {rec['bound_ms']:.4f} ms (bytes), "
+              f"{rec['bound_ms'] / rec['cold_ms']:.0%} of it cold",
+              flush=True)
+        del spare, scratch
+    return hook
+
+
 class FirstLaunchCheck:
     """Wraps the kernel entries during a run without keeping copies (unlike
     :class:`Capture`, which would hold gigabytes at 6048x4032): on the first
@@ -1012,10 +1130,16 @@ class FirstLaunchCheck:
     copies stay out of the card's peak counter: the peak the run reached
     before each is noted and the counter reset after it, and
     :meth:`max_allocated` / :meth:`reset_peak` stand for
-    ``torch.cuda.max_memory_allocated`` / ``reset_peak_memory_stats``."""
+    ``torch.cuda.max_memory_allocated`` / ``reset_peak_memory_stats``.
+    ``timed`` maps an entry to a function called after the check of each
+    signature's first launch with the entry's own function, the arguments
+    and the keyword arguments (to time the launch; inside ``own_peak``'s
+    exclusion too)."""
 
-    def __init__(self, entries, plain, exact, keep=None, own_peak=False):
+    def __init__(self, entries, plain, exact, keep=None, own_peak=False,
+                 timed=None):
         self.entries, self.plain, self.exact = entries, plain, exact
+        self.timed = dict(timed or {})
         self.orig = {n: getattr(m, n) for n, m in entries.items()}
         self.checked = {n: set() for n in entries}
         self.max_channel_bytes = 0
@@ -1038,10 +1162,9 @@ class FirstLaunchCheck:
         fn, ref = self.orig[name], self.plain[name]
         checked, kept = self.checked[name], self.kept[name]
 
-        def wrapped(*args):
-            out = fn(*args)
-            sig = tuple((tuple(a.shape), str(a.dtype), tuple(a.stride()))
-                        for a in args)
+        def wrapped(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            sig = launch_signature(name, args, kwargs)
             if name == "gather2d":
                 img = args[0]
                 self.max_channel_bytes = max(
@@ -1058,9 +1181,11 @@ class FirstLaunchCheck:
                                       torch.cuda.max_memory_allocated())
             if sig not in checked:
                 checked.add(sig)
-                want = ref(*args)
+                want = ref(*args, **kwargs)
                 self.exact(name, out, want, f"{sig} (first launch)")
                 del want
+                if name in self.timed:
+                    self.timed[name](fn, args, kwargs)
             if keep:
                 # A copy: the inputs may be views of the run's tensors,
                 # which a reference would keep alive.
@@ -1082,11 +1207,13 @@ class FirstLaunchCheck:
 
 
 def fullres_phase(out_dir: Path, cfg, launches, reset, modules, plain,
-                  exact) -> dict:
+                  exact, weak_times: list) -> dict:
     """Phase 12: full-resolution frames (FULLRES), 12a at 1600x1200 and 12c
     at 6048x4032, 6 views each, through ``process_problem`` inside
     :class:`FirstLaunchCheck`. ``exact(name, a, b, where)`` fails the script
-    unless a equals b bit for bit. Returns {"launches": {path: launches},
+    unless a equals b bit for bit. The final round's (rnd > 0) weak_cost
+    launches are timed into ``weak_times`` (:func:`weak_cost_timer`).
+    Returns {"launches": {path: launches},
     "row4": [timing records], "summary": what the ``fullres`` line
     prints, "scene": 12c's scene, for phase 14}."""
     import numpy as np
@@ -1246,8 +1373,11 @@ def fullres_phase(out_dir: Path, cfg, launches, reset, modules, plain,
         row4_regime = {"gather2d": lambda args: (
             args[0].shape[-1] * args[0].shape[-2] * args[0].element_size()
             > ROW4_CHANNEL_BYTES)}
+        timed = ({"weak_cost": weak_cost_timer(weak_times,
+                                                f"{label} pass B")}
+                 if rnd else None)
         with FirstLaunchCheck(modules, plain, exact, keep=row4_regime,
-                              own_peak=True) as chk:
+                              own_peak=True, timed=timed) as chk:
             if rnd == 0:
                 reset()
                 for i in range(VIEWS):
@@ -1738,6 +1868,37 @@ def weak_envelope_phase(out_dir: Path, launches, reset, modules, plain,
             "summary": summary}
 
 
+def weak_cell_phase(launches, reset, plain, exact, weak_times: list) -> dict:
+    """Phase 15: ``tools/torch_probe.py``'s round sweeps at CELL_FRAME
+    in-process, inside :class:`FirstLaunchCheck` on ``weak_cost`` (every
+    shape's first launch bit-exact, each mode's first launch timed into
+    ``weak_times``). Fails unless the weak bodies launched 15 kernels each
+    in pass A and 23 in pass B. Returns {"launches": the sweeps',
+    "checked_shapes": signatures checked}."""
+    from dpe_mvs_tpu_torch.engine import weak_rect
+    from tools import torch_probe
+
+    w, h, views, rnd = CELL_FRAME
+    label = f"{w}x{h}"
+    bodies = 2 * 3 * weak_rect._weak_band_count(h, w)  # colours, iterations
+    reset()
+    with FirstLaunchCheck({"weak_cost": weak_rect}, plain, exact,
+                          timed={"weak_cost": weak_cost_timer(
+                              weak_times, f"{label} round {rnd}")}) as chk:
+        rc = torch_probe.main([str(w), str(h), str(views), "apd", "geom",
+                               "--round", str(rnd)])
+    n = launches()
+    if rc != 0:
+        fail(f"tools/torch_probe.py at {label} returned {rc}")
+    checked = len(chk.checked["weak_cost"])
+    print(f"weak_cost at {label}: {checked} shapes bit-exact at their first "
+          f"launch; launches {n}", flush=True)
+    if n["weakcost"] != bodies * (15 + 23):
+        fail(f"weak_cost at {label}: {n['weakcost']} launches, not 15 a "
+             f"band body in pass A and 23 in pass B over {bodies} each")
+    return {"launches": n, "checked_shapes": checked}
+
+
 def exact_kernel_times(ex, modules, plain, flush) -> dict:
     """Phase 10c's timings: for gather2d_hwc (exact pass A and B) and
     gather2d_pick (exact pass B), the three shapes that move the most
@@ -1817,27 +1978,38 @@ def main() -> None:
     from dpe_mvs_tpu_torch.ops import cudalib
     from dpe_mvs_tpu_torch.ops import gather2d as g2d
     from dpe_mvs_tpu_torch.ops import rowgather as rg
+    from dpe_mvs_tpu_torch.ops import weakcost as wc
+    from dpe_mvs_tpu_torch.engine import weak_rect as twr
     from dpe_mvs_tpu_torch.pipeline import schedule as sch
     from dpe_mvs_tpu_torch.utils.profiling import outermost
     from dpe_mvs_tpu_torch.utils.synthetic import make_plane_scene, \
         support_maps
+    # The gathers' entries (copied per shape by Capture, checked and timed
+    # at every captured shape); weak_cost joins them where the inputs are
+    # not copied (FirstLaunchCheck).
     modules = {"row_gather": rg, "bilinear_x": rg,
                **{n: g2d for n in GATHERS}}
     plain = {"row_gather": rg.row_gather_ref, "bilinear_x": rg.bilinear_x_ref,
              "gather2d": g2d.gather2d_ref,
              "gather2d_hwc": g2d.gather2d_hwc_ref,
-             "gather2d_pick": g2d.gather2d_pick_ref}
+             "gather2d_pick": g2d.gather2d_pick_ref,
+             "weak_cost": weak_cost_plain}
+    checked = {**modules, "weak_cost": twr}
+    weak_only = {"weak_cost": twr}
+    weak_times = []
 
     def reset():
         rg.reset_launches()
         g2d.reset_launches()
+        wc.reset_launches()
 
     def launches():
-        return {**rg.LAUNCHES, **g2d.LAUNCHES}
+        return {**rg.LAUNCHES, **g2d.LAUNCHES, **wc.LAUNCHES}
 
     phase("2. build kernels")
     t0 = time.time()
-    sos = cudalib.build_many([rg.SOURCE, g2d.SOURCE], verbose=True)
+    sos = cudalib.build_many([rg.SOURCE, g2d.SOURCE, wc.SOURCE],
+                             verbose=True)
     print(f"built {', '.join(p.name for p in sos)} in "
           f"{time.time() - t0:.1f} s")
 
@@ -2116,7 +2288,8 @@ def main() -> None:
     reset()
     t0 = time.time()
     per_sweep_b = None
-    with Capture(modules) as cap_b:
+    with Capture(modules) as cap_b, \
+            FirstLaunchCheck(weak_only, plain, exact) as chk_b:
         for p in problems:
             inp, maps = pass_b_inputs(p)
             weak_share = float((inp.weak_info == 0).mean())
@@ -2130,7 +2303,9 @@ def main() -> None:
             if per_sweep_b is None:
                 per_sweep_b, counts_b = n, cap_b.counts()
     launches_b = launches()
-    print(f"all problems: {time.time() - t0:.2f} s (first includes warm-up)")
+    print(f"all problems: {time.time() - t0:.2f} s (first includes warm-up); "
+          f"weak_cost bit-exact at the first launch of "
+          f"{len(chk_b.checked['weak_cost'])} shapes")
     print(f"launches: {launches_b}")
     for name, n in launches_b.items():
         if n <= 0:
@@ -2405,8 +2580,8 @@ def main() -> None:
     del launches_p["seen"]
 
     # Phase 12 before phase 10: its time counts in 10b's projection.
-    full = fullres_phase(out_dir / "fullres", cfg, launches, reset, modules,
-                         plain, exact)
+    full = fullres_phase(out_dir / "fullres", cfg, launches, reset, checked,
+                         plain, exact, weak_times)
     print(f"phase 12: {sum(v['seconds'] for v in full['summary'].values()):.1f}"
           f" s; script time so far {time.time() - t_start:.1f} s")
     # Phase 14 on 12c's scene, which goes with it.
@@ -2416,11 +2591,34 @@ def main() -> None:
           f"{full['scene'].height}x{FINAL_VIEWS}, resumed after iteration "
           f"{FINAL_RESUME}")
     final = final_round_phase(full.pop("scene"), out_dir / "final_round",
-                              launches, reset, modules, plain, exact, device)
+                              launches, reset, checked, plain, exact, device)
     print(json.dumps({"final_round": {**final["summary"],
                                       "fusion_hwc": final["fusion_hwc"]}}))
     print(f"phase 14: {time.time() - t0:.1f} s; script time so far "
           f"{time.time() - t_start:.1f} s")
+
+    t0 = time.time()
+    phase(f"15. the weak stage's cost kernel at the benchmark cell's frame: "
+          f"{CELL_FRAME[0]}x{CELL_FRAME[1]}x{CELL_FRAME[2]}, round "
+          f"{CELL_FRAME[3]}")
+    cell = weak_cell_phase(launches, reset, plain, exact, weak_times)
+    print(f"phase 15: {time.time() - t0:.1f} s")
+    cell_label = f"{CELL_FRAME[0]}x{CELL_FRAME[1]} round {CELL_FRAME[3]}"
+    top = next((r for r in weak_times if r["frame"] == cell_label
+                and r["mode"] == "cost"), None)
+    if top is None:
+        fail(f"weak_cost was not timed at {cell_label}: {weak_times}")
+    kernels.append({"name": "weakcost", "route": "cuda",
+                    "source": SOURCES["weakcost"],
+                    "replaces": REPLACES["weakcost"], "max_abs_err": 0.0,
+                    "shape": f"{top['views']} x {top['sites'][0]} x "
+                             f"{top['sites'][1]} sites ({cell_label})",
+                    **{k: top[k] for k in ("ms", "cold_ms", "plain_ms",
+                                           "plain_cold_ms", "bound_ms",
+                                           "bound_by")},
+                    "bands": weak_times,
+                    "cell_launches": cell["launches"]["weakcost"],
+                    "cell_checked_shapes": cell["checked_shapes"]})
 
     # Phase 10: the exact engine on the same scene, in memory.
     rect_s = {k: statistics.median(v) for k, v in sweep_s.items()}
@@ -2464,7 +2662,7 @@ def main() -> None:
     phase(f"13. the weak-path envelope: tools/torch_weak_compare.py at "
           f"{W}x{H}x{VIEWS}")
     env = weak_envelope_phase(out_dir / "weak_compare", launches, reset,
-                              modules, plain, exact)
+                              checked, plain, exact)
     print(json.dumps({"weak_envelope": env["summary"]}))
 
     for rec in kernels:
@@ -2485,7 +2683,9 @@ def main() -> None:
             **{f"fullres {path}": n[name]
                for path, n in full["launches"].items()},
             "final round": final["launches"][name],
-            "final round fusion": final["fusion"][name],
+            "cell frame": cell["launches"][name],
+            # The tool counts the gathers' launches only.
+            "final round fusion": final["fusion"].get(name, 0),
             **{path: n[name] for path, n in env["launches"].items()}}
         if name in exact_recs:
             rec["exact"] = exact_recs[name]

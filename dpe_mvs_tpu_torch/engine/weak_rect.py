@@ -16,6 +16,11 @@ elementwise work:
      disparity, gathered once per sweep at the 8 deformable anchors of every
      pixel (the ``gather2d`` kernel).
 
+Each such evaluation (a candidate plane field's cost, term, or both, at
+every view) goes through :func:`weak_cost`: on the card one launch of the
+``weakcost`` kernel (:mod:`..ops.weakcost`), on the CPU the ``_ref``
+functions, its plain version.
+
 A candidate plane's deformable cost at pixel p for view v is
 
     0.25 * lerp(center profile at p,   disparity of the candidate at p)
@@ -43,7 +48,7 @@ from ..config import (COST_MAX, GEOM_COST_MAX, PatchMatchParams, PixelState,
                       RunState)
 from ..geometry import cameras as geo
 from ..geometry import rectify
-from ..ops import checker, ncc, sampling
+from ..ops import checker, ncc, sampling, weakcost
 from ..ops import gather2d as g2d
 from ..utils import profiling
 from ..utils.profiling import BRANCHES
@@ -447,13 +452,15 @@ class WeakSites(NamedTuple):
     xr: torch.Tensor              # (V, H, W) pixel coords in each rect frame
     yr: torch.Tensor
     # Anchor pixel coords (orig grid, int32); their per-view rect-frame
-    # coords are recomputed in deformable_cost_rect.
+    # coords are recomputed in weak_cost.
     a_x: torch.Tensor             # (8, H, W) int32
     a_y: torch.Tensor
     anchor_valid: torch.Tensor    # (8, H, W)
     anchor_strong: torch.Tensor   # (8, H, W) anchor is STRONG
     anchor_sel: torch.Tensor      # (8, H, W) int32 selected views @ anchor
     anchor_plane: torch.Tensor    # (8, H, W, 4) current plane @ anchor
+    rect_consts: torch.Tensor     # the views' rect constants, packed for
+                                  # the kernel (weakcost.pack_consts)
 
 
 def build_weak_sites(data: SweepData, sup, state: PMState, bundle,
@@ -513,17 +520,66 @@ def build_weak_sites(data: SweepData, sup, state: PMState, bundle,
         xr=torch.stack(xr_l), yr=torch.stack(yr_l), a_x=a_x, a_y=a_y,
         anchor_valid=a_valid, anchor_strong=anchor_strong,
         anchor_sel=anchor_sel, anchor_plane=anchor_plane,
+        rect_consts=weakcost.pack_consts(data.rect, data.view_valid),
     )
 
 
-def deformable_cost_rect(data: SweepData, sites: WeakSites,
-                         plane: torch.Tensor, params: PatchMatchParams
-                         ) -> torch.Tensor:
+def weak_cost(data: SweepData, sites: WeakSites, plane: torch.Tensor,
+              photo: bool = True, geom: bool = False,
+              geom_factor: float = 0.0,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(V, H, W) of a candidate plane field at the sites: the photometric
+    deformable cost (``photo``), the geometric term (``geom``) or, with both,
+    cost + geom_factor * term (the refinement's weighted candidate); written
+    into ``out`` (contiguous) if given. On a CUDA device one launch of the
+    ``weakcost`` kernel (:func:`..ops.weakcost.launch`), on the CPU the plain
+    version (:func:`weak_cost_ref`); bit for bit the same."""
+    if not (photo or geom):
+        raise ValueError("weak_cost: nothing asked for")
+    if plane.device.type == "cuda":
+        return weakcost.launch(plane, **_kernel_operands(sites, photo, geom),
+                               geom_factor=geom_factor, out=out)
+    if plane.device.type != "cpu":
+        raise ValueError(f"weak_cost: unsupported device {plane.device}")
+    res = weak_cost_ref(data, sites, plane, photo, geom, geom_factor)
+    return res if out is None else out.copy_(res)
+
+
+def _kernel_operands(sites: WeakSites, photo: bool, geom: bool) -> dict:
+    """The sites' fields that ``weakcost.launch`` reads for the cost
+    (``photo``) and the term (``geom``), by its argument names."""
+    ops = dict(consts=sites.rect_consts, xr=sites.xr, yr=sites.yr,
+               d0=sites.d0)
+    if photo:
+        ops.update(vol_center=sites.vol_center, ap=sites.ap, a_d0=sites.a_d0,
+                   a_x=sites.a_x, a_y=sites.a_y, a_valid=sites.anchor_valid,
+                   a_sel=sites.anchor_sel)
+    if geom:
+        ops["vol_geom"] = sites.vol_geom
+    return ops
+
+
+def weak_cost_ref(data: SweepData, sites: WeakSites, plane: torch.Tensor,
+                  photo: bool = True, geom: bool = False,
+                  geom_factor: float = 0.0) -> torch.Tensor:
+    """Plain version of :func:`weak_cost` (on any device): the plain chains,
+    summed as the refinement sums them."""
+    if not photo:
+        return geom_term_rect_ref(data, sites, plane)
+    res = deformable_cost_rect_ref(data, sites, plane)
+    if geom:
+        res = res + geom_factor * geom_term_rect_ref(data, sites, plane)
+    return res
+
+
+def deformable_cost_rect_ref(data: SweepData, sites: WeakSites,
+                             plane: torch.Tensor) -> torch.Tensor:
     """(V, H, W) photometric deformable NCC of a candidate plane field at the
     sites, through profile interpolation (semantics of
-    ``ComputeBilateralNCCNew``, DPE.cu:557-690). The geometric term is
-    separate (:func:`geom_term_rect`): the reference adds it after view
-    selection (DPE.cu:1786-1798)."""
+    ``ComputeBilateralNCCNew``, DPE.cu:557-690): the plain version of
+    :func:`weak_cost`'s cost. The geometric term is separate
+    (:func:`geom_term_rect_ref`): the reference adds it after view selection
+    (DPE.cu:1786-1798)."""
     out = []
     for i, rv in enumerate(data.rect):
         pr = rectcost.plane_to_rect(plane, rv.R2r)           # (H, W, 4)
@@ -549,7 +605,12 @@ def deformable_cost_rect(data: SweepData, sites: WeakSites,
         contrib = torch.where(ok_a, val_a.clamp(0.0, COST_MAX),
                               torch.where(sel_here, cmax, zero))
         counts = torch.where(ok_a, one, torch.where(sel_here, one, zero))
-        strong_sum = torch.where(sites.anchor_valid, contrib, zero).sum(0)
+        # Summed in anchor order, as the kernel does (a reduction's order
+        # is the device's choice).
+        masked = torch.where(sites.anchor_valid, contrib, zero)
+        strong_sum = masked[0]
+        for j in range(1, masked.shape[0]):
+            strong_sum = strong_sum + masked[j]
         strong_cnt = torch.where(sites.anchor_valid, counts, zero).sum(0)
         strong_cost = (strong_sum / strong_cnt.clamp(min=1.0)) \
             .clamp(max=COST_MAX)
@@ -561,11 +622,11 @@ def deformable_cost_rect(data: SweepData, sites: WeakSites,
     return torch.stack(out)
 
 
-def geom_term_rect(data: SweepData, sites: WeakSites, plane: torch.Tensor
-                   ) -> torch.Tensor:
+def geom_term_rect_ref(data: SweepData, sites: WeakSites,
+                       plane: torch.Tensor) -> torch.Tensor:
     """(V, H, W) forward-backward geometric consistency of a candidate at
     the sites, from the probe volume (``ComputeGeomConsistencyCost``,
-    DPE.cu:915-953)."""
+    DPE.cu:915-953): the plain version of :func:`weak_cost`'s term."""
     out = []
     for i, rv in enumerate(data.rect):
         pr = rectcost.plane_to_rect(plane, rv.R2r)
@@ -607,6 +668,7 @@ def _slice_sites(sites: WeakSites, r0: int, hb: int) -> WeakSites:
         anchor_strong=sl(sites.anchor_strong, 1),
         anchor_sel=sl(sites.anchor_sel, 1),
         anchor_plane=sl(sites.anchor_plane, 1),
+        rect_consts=sites.rect_consts,
     )
 
 
@@ -700,7 +762,8 @@ def _weak_body(key, data: SweepData, sites: WeakSites, plane_now,
     """Candidate evaluation + view selection + refinement for (a band of)
     the weak sites; returns (plane, selected, view_weight, weight_norm)
     before the final cost (CheckerboardPropagationWeak, DPE.cu:1668-1843).
-    The 8 anchor candidates are evaluated one after another."""
+    The 8 anchor candidates are evaluated one after another, each cost and
+    term in one ``weakcost`` launch on the card."""
     with profiling.span("weak.candidates"):
         nview = data.num_src
         dev = data.device
@@ -711,9 +774,11 @@ def _weak_body(key, data: SweepData, sites: WeakSites, plane_now,
 
         flags = sites.anchor_valid & sites.anchor_strong     # (8, H, W)
         cand_planes = sites.anchor_plane                     # (8, H, W, 4)
-        cost_array = torch.stack([
-            deformable_cost_rect(data, sites, cp, params)
-            for cp in cand_planes])                          # (8, V, H, W)
+        cost_array = torch.empty(
+            (cand_planes.shape[0], len(data.rect), *px.shape),
+            dtype=torch.float32, device=dev)                 # (8, V, H, W)
+        for k in range(cand_planes.shape[0]):
+            weak_cost(data, sites, cand_planes[k], out=cost_array[k])
         cost_array = torch.where(flags[:, None], cost_array, zero)
 
         # Priors from all valid anchors (DPE.cu:1717-1730).
@@ -736,8 +801,10 @@ def _weak_body(key, data: SweepData, sites: WeakSites, plane_now,
             final_costs = torch.stack([
                 (view_weight * (cost_array[k] + params.geom_factor
                                 * torch.where(flags[k][None],
-                                              geom_term_rect(data, sites,
-                                                             cand_planes[k]),
+                                              weak_cost(data, sites,
+                                                        cand_planes[k],
+                                                        photo=False,
+                                                        geom=True),
                                               gmax))).sum(0) / wsum
                 for k in range(cand_planes.shape[0])])
         else:
@@ -748,9 +815,8 @@ def _weak_body(key, data: SweepData, sites: WeakSites, plane_now,
         min_plane = strong_rect._select_k(cand_planes, min_idx)
 
     def eval_weighted(cand):
-        c = deformable_cost_rect(data, sites, cand, params)
-        if geom:
-            c = c + params.geom_factor * geom_term_rect(data, sites, cand)
+        c = weak_cost(data, sites, cand, geom=geom,
+                      geom_factor=params.geom_factor)
         return (view_weight * c).sum(0) / wsum
 
     with profiling.span("weak.refine"):

@@ -12,8 +12,8 @@ consistency on).
     equal on >= 99% of the entries and within one bf16 unit in the last
     place elsewhere (a float32 cost one rounding apart can round to the
     neighbouring bf16 value); the probe-center disparities to atol 1e-4;
-  * ``interp_profile``, ``deformable_cost_rect`` and ``geom_term_rect`` on
-    carried inputs, in the store, the regathered-a_d0 and the streaming
+  * ``interp_profile`` and ``weak_cost``'s cost and geometric term (JAX's
+    ``deformable_cost_rect`` and ``geom_term_rect``) on carried inputs, in the store, the regathered-a_d0 and the streaming
     mode: ``assert_costs_close``;
   * one weak color's proposal: planes agree on >= 95% of the color's weak
     sites (statistical past the argmins, as the strong iteration);
@@ -184,13 +184,13 @@ def test_deformable_and_geom_terms(case, mode, monkeypatch):
     planes = [c["st1"].plane, sites.anchor_plane[0], c["fit"]["fit_plane"]]
     for pl in planes:
         ref = weak_rect.deformable_cost_rect(ws.data, sites, pl, ws.params)
-        ours = twr.deformable_cost_rect(c["tdata"], tsites,
-                                        torch.from_numpy(np.asarray(pl)),
-                                        c["tparams"])
+        ours = twr.weak_cost(c["tdata"], tsites,
+                             torch.from_numpy(np.asarray(pl)))
         torch_parity.assert_costs_close(ours.numpy(), np.asarray(ref))
         ref = weak_rect.geom_term_rect(ws.data, sites, pl)
-        ours = twr.geom_term_rect(c["tdata"], tsites,
-                                  torch.from_numpy(np.asarray(pl)))
+        ours = twr.weak_cost(c["tdata"], tsites,
+                             torch.from_numpy(np.asarray(pl)), photo=False,
+                             geom=True)
         torch_parity.assert_costs_close(ours.numpy(), np.asarray(ref))
     assert (np.asarray(ref) < 3.0).mean() > 0.3       # geometry is informative
 

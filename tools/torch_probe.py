@@ -151,6 +151,7 @@ def main(argv=None) -> int:
     from dpe_mvs_tpu_torch.ops import anchors
     from dpe_mvs_tpu_torch.ops import gather2d as g2d
     from dpe_mvs_tpu_torch.ops import rowgather as rg
+    from dpe_mvs_tpu_torch.ops import weakcost as wc
     from dpe_mvs_tpu_torch.pipeline import schedule as sch
     from dpe_mvs_tpu_torch.utils.profiling import BRANCHES, outermost
     from dpe_mvs_tpu_torch.utils.synthetic import make_plane_scene, \
@@ -211,7 +212,7 @@ def main(argv=None) -> int:
             torch.cuda.synchronize(device)
 
     def launches():
-        return {**rg.LAUNCHES, **g2d.LAUNCHES}
+        return {**rg.LAUNCHES, **g2d.LAUNCHES, **wc.LAUNCHES}
 
     def sweep(label, params, inputs, maps=None):
         spans, stages = {}, {}
